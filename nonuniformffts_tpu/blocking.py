@@ -1,387 +1,28 @@
 """Device-side point bin-sorting into spatial blocks.
 
-TPU-native counterpart of the reference's GPU blocking (src/blocking/gpu.jl):
-where the reference runs four device kernels (atomic histogram -> prefix sum
--> scatter permutation -> optional point permutation), we compute block ids
-from cell indices and use one ``lax.sort_key_val`` plus a scatter-add
-histogram — no atomics needed, and the result is a *contiguous* slice of
-sorted points per block, which is what lets the Pallas spread/interp kernels
-own their output block outright (zero races by construction).
+Counterpart of the reference's GPU blocking (src/blocking/gpu.jl): where the
+reference runs four device kernels (atomic histogram -> prefix sum ->
+scatter permutation -> optional point permutation), we compute block ids
+from cell indices and run one multi-operand ``lax.sort`` that carries the
+cell split and the original index along; a binary search over the sorted
+ids then gives every block its *contiguous* range of sorted points, which
+is what lets the spread kernel own its output block outright.
 
 Consistency requirement carried over from the reference
-(blocking/gpu.jl:145-160): the block id derives from ``point_to_cell``'s cell
-index — the exact same computation the spread/interp kernels use — never from
-the block width directly, so a point can never land outside its block's
-padded window.
+(blocking/gpu.jl:145-160): the block id derives from the cell index that
+the spread kernel itself uses, never from the block width directly, so a
+point can never land outside its block's padded window.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from .ops import windows
-
-
-def _divisors(n: int):
-    out = [d for d in range(1, n + 1) if n % d == 0]
-    return out
-
-
-# Cost-model constants, calibrated on a TPU v5e by non-negative least
-# squares against the 15-row round-3 device A/B ladder (PROFILE.md
-# "Round-3 device A/B results": Np = 1e6 and 16.7M, batch 128..512, five
-# block geometries; fit residual < 10% on every row outside the VMEM
-# cliff).  MXU MAC rate is PINNED to the physical bf16-pass rate, not
-# fitted (the free fit aliases MXU time into the VPU term): ~9e13 bf16
-# MACs/s on v5e -> /6 passes at 'highest', /3 at 'high'.
-_PROGRAM_OVERHEAD_S = 3.5e-6
-_MXU_MACS_PER_S = 3.0e13  # bf16x3 ('high'; the matmul-DFT always runs this)
-_MXU_MACS_PER_S_X6 = 1.5e13  # bf16x6 ('highest'/'double' kernel contractions)
-_HBM_BYTES_PER_S = 6.8e11
-# Fixed cost per point batch inside the kernels (control flow + DMA wait +
-# scalar work independent of contraction size); the per-batch VECTOR work
-# (weight builds, Khatri-Rao stack, accumulator RMW) is modelled separately
-# below via _VPU_CYCLE_S x the vreg-op count, which is what makes narrow
-# pd1/pdL geometries win at high density.
-_BATCH_OVERHEAD_S = 5.6e-7
-_VPU_CYCLE_S = 8.0e-10  # per modelled (8,128) vreg op, fitted
-
-#: Per-core VMEM budget for the blocked kernels' *estimated* working set
-#: (reference analogue: the 48 KiB CUDA shared-memory budget solved in
-#: src/gpu_common.jl:19-92).  The hardware scoped-vmem limit is 16 MiB; the
-#: estimate below undercounts Mosaic's pipelining buffers by ~40%
-#: (empirically: estimate 12.6 MiB -> 18.3 MiB actual at blocks
-#: (24,32,128)), so the budget is set so that estimates <= 10 MiB
-#: correspond to actual usage comfortably under the 16 MiB limit.
-VMEM_BUDGET_BYTES = 10 * 1024 * 1024
-
-#: Mosaic pipeline-pressure cliff (round-3/4 device ladders): when the
-#: z-form working-set estimate crosses ~9 MiB, Mosaic stops overlapping
-#: the output-block pipeline with compute and the kernel pass slows by a
-#: measured ~1.66x (batch 256 -> 384 at blocks (64,8,96), identical MACs:
-#: +66%; batch 512 at (64,8,96), 10.6 MiB: ~2x; while batch 512 at
-#: (48,8,96), 8.6 MiB, and batch 128 at (64,16,96), 8.9 MiB, both run at
-#: model speed).  The mechanism does not track any single modelled buffer
-#: (PROFILE.md round-4 ladder: dma_super=2 half-recovers batch 1024), so
-#: it is modelled as a calibrated threshold penalty on the kernel-pass
-#: cost rather than a per-buffer term.  This is what rejects the 384/512
-#: batch candidates the raw MAC/overhead model would otherwise prefer at
-#: high density.
-VMEM_PRESSURE_BYTES = int(9.0 * 1024 * 1024)
-_VMEM_PRESSURE_FACTOR = 1.66
-
-#: SMEM budget for the kernels' scalar-prefetch operands.  The hardware
-#: limit is 1 MiB per core; the dominant operand is the packed per-batch
-#: window metadata r01s (one i32 per point batch), next to the block
-#: segment tables (two i32 per block).  Leave headroom for Mosaic's own
-#: scalar allocations: at rho = 10 on 256^3 (167.8M points) batch = 256
-#: means 656k batches = 2.6 MiB and the compile fails with "would exceed
-#: memory (size=1048576) .. space=smem" — the geometry search must
-#: escalate the batch size instead.
-SMEM_BUDGET_BYTES = 768 * 1024
-
-
-def smem_bytes(np_pts: int, nblocks: int, batch: int) -> int:
-    """Estimated scalar-prefetch SMEM bytes for the packed layout: r01s
-    (one word per batch; each block can add one partial batch) plus the
-    per-block segment tables."""
-    nbatches = np_pts // batch + nblocks + 1
-    return 4 * nbatches + 8 * (nblocks + 1)
-
-
-def geometry_cost(
-    shape_over, block_dims, m: int, cr: int, np_pts: int, batch: int,
-    n_keep=None, form: str = "yz", spread_acc2: bool = False,
-    dma_super: int = 4, precision: str = "highest",
-):
-    """Estimated seconds for one spread (or interpolation) pass, plus the
-    kernel working-set VMEM bytes.  Returns (cost_s, vmem_bytes).
-
-    The model is the TPU counterpart of the reference's shared-memory
-    geometry arithmetic (src/gpu_common.jl:19-92), with the roles inverted:
-    on a GPU the binding constraint is shared memory per workgroup; here the
-    binding constraints are (a) the fixed per-program pipeline overhead
-    multiplied by the number of blocks, (b) HBM traffic of the padded block
-    buffer, (c) MXU time of the dense window contractions, and (d) VMEM.
-
-    ``form``: 'yz' = classic accumulator (cr*pd0, pd1*..*pd_last); 'z' =
-    z-form (cr*pd0*..*pd_{D-2}, pd_last) with the x-window in rows.
-    """
-    D = len(shape_over)
-    from .ops.pallas.common import (  # local: avoid cycle
-        padded_block_dims,
-        padded_block_dims_z,
-        round_up,
-    )
-
-    pd = (
-        padded_block_dims_z(block_dims, m)
-        if form == "z"
-        else padded_block_dims(block_dims, m)
-    )
-    yz = 1
-    for p in pd[1:]:
-        yz *= p
-    nblocks = 1
-    for n, b in zip(shape_over, block_dims):
-        nblocks *= n // b
-    # Expected batches: every point appears once, plus ~half a batch of
-    # padding per non-empty block (slot quantisation).
-    nbatches = np_pts / batch + 0.5 * min(nblocks, np_pts)
-    if form == "z":
-        # Windowed x-rows: expected dim-0 cell span of one batch + window
-        # (mirrors the plan's window_rows='auto' rule, plan.py).
-        avg = max(np_pts / max(nblocks, 1), 1.0)
-        span0 = block_dims[0] * min(1.0, batch / avg)
-        W0 = min(pd[0], int(span0) + 2 * m + 2)
-        rows_mid = 1
-        for p in pd[1:-1]:
-            rows_mid *= p
-        # Dim-1 window (3D): engages when a batch fits inside one dim-0
-        # cell slab (window_rows_y='auto' rule); model the expected rows as
-        # the engaged-W1 value when it undercuts the full mid extent.
-        if D >= 3:
-            per_slab = avg / block_dims[0]
-            span_y = block_dims[1] * min(1.0, batch / max(per_slab, 1.0))
-            W1 = round_up(int(span_y) + 2 * m + 8, 8)
-            if W1 < pd[1]:
-                rows_mid = rows_mid // pd[1] * W1
-        m_eff = max(cr * W0 * rows_mid, 64)
-        # MXU lane tiles are 128 wide: a contraction writing pd_last lanes
-        # pays ceil(pd_last/128) full tiles (pd_last=104 runs at 104/128
-        # throughput, pd_last=136 at 136/256).
-        n_eff = -(-pd[-1] // 128) * 128
-        macs = nbatches * m_eff * n_eff * batch
-        # Per-batch VECTOR work (the round-3 calibrated term): tap-scatter
-        # builds of the three weight matrices (2 ops x 2M taps x the
-        # sublane-vreg count of each), the Khatri-Rao + value stack, and the
-        # windowed accumulator read-add-write; one (8,128) vreg op per
-        # count, widths scale with batch/128 lanes.
-        v8 = lambda r: -(-r // 8)
-        vreg_ops = (
-            2 * (2 * m) * (v8(W0) + v8(rows_mid) + v8(pd[-1]))
-            + (cr + 1) * v8(W0 * rows_mid)
-            + 3 * v8(cr * W0 * rows_mid) * (-(-pd[-1] // 128))
-            + 100  # window chains + decode + control
-        )
-        vpu_s = nbatches * vreg_ops * (batch / 128) * _VPU_CYCLE_S
-    else:
-        # MXU output rows come in 128-tiles: a contraction with M = cr*pd0
-        # rows costs ceil(M/128)*128 row-slots regardless of M (a CR=1 r2c
-        # plan with pd0=24 wastes 81% of the MXU unless pd0 grows).
-        m_eff = -(-(cr * pd[0]) // 128) * 128
-        macs = nbatches * m_eff * yz * batch
-        vpu_s = nbatches * 100 * (batch / 128) * _VPU_CYCLE_S
-    padded_bytes = nblocks * cr * pd[0] * yz * 4
-    nslots = np_pts + nblocks * (batch - 1) / 2
-    io_bytes = 2 * padded_bytes + nslots * (8 + max(8, cr)) * 4
-    # Block-form DFT inflation (matmul_fft.forward_dft_blockform): each
-    # axis contracts L_d = nb_d * pd_d rows instead of N_d, so the padded
-    # layout taxes the (cheap but not free) DFT MACs.  Estimated for the
-    # complex Karatsuba driver contracting axis 0 first.
-    if n_keep is None:
-        n_keep = tuple(int(n / 1.5) for n in shape_over)
-    L = [(n // b) * p for n, b, p in zip(shape_over, block_dims, pd)]
-    C_est = max(cr // 2, 1)
-    dft_macs = 0.0
-    for d in range(D):
-        rows = 1.0
-        for e in range(d + 1, D):
-            rows *= L[e]
-        for e in range(d):
-            rows *= n_keep[e]
-        dft_macs += 3.0 * C_est * rows * L[d] * n_keep[d]
-    # ``precision`` here is the KERNEL contraction precision (the plan's
-    # kernel_precision override when set, else its precision): 'default'
-    # is one bf16 pass (~6x the HIGHEST rate, modelled as the 'high'
-    # constant — the geometry search only needs the ranking), 'fxp' runs
-    # six int8 products at ~1.9x the HIGHEST rate (scripts/exp_int8_pallas:
-    # 512 vs 957 cyc at M=256).
-    if precision in ("high", "default"):
-        kernel_mxu = _MXU_MACS_PER_S
-    elif precision == "fxp":
-        kernel_mxu = 1.9 * _MXU_MACS_PER_S_X6
-    else:
-        kernel_mxu = _MXU_MACS_PER_S_X6
-    kernel_pass_cost = (
-        nblocks * _PROGRAM_OVERHEAD_S
-        + nbatches * _BATCH_OVERHEAD_S
-        + vpu_s
-        + macs / kernel_mxu
-        + io_bytes / _HBM_BYTES_PER_S
-    )
-    dft_cost = 2 * dft_macs / _MXU_MACS_PER_S
-    # VMEM working set, per kernel form (the feasibility test must track the
-    # buffers the kernel actually allocates: the round-2 yz formula applied
-    # to z-form plans rejected every geometry at batch_size >= 256 because
-    # of a 3*yz*batch qt term the z kernels do not have).
-    if form == "z" and D >= 2:
-        rm = 1
-        for p in pd[1:-1]:
-            rm *= p
-        pdL = pd[-1]
-        rows = cr * pd[0] * rm
-        # DMA pipeline geometry must mirror the kernel's (blocked.py:_nbuf):
-        # 4 single-batch buffers at dma_super=1, else 2 super-batch buffers.
-        nbuf_batches = (4 if dma_super == 1 else 2) * dma_super
-        vmem = (
-            # acc scratch (x2 with the spread_acc2 ping-pong) + Mosaic's
-            # double-buffered out-block pipeline
-            (4 if spread_acc2 else 3) * rows * pdL * 4
-            # wv (rows, P) + prod (rows, pdL) worst-case (full-fallback path
-            # is traced even when windows are active, so it sizes the slab)
-            + rows * (batch + pdL) * 4
-            # wlast build + per-dim tap staging
-            + 2 * (pdL + sum(pd)) * batch * 4
-            # pv pipeline buffer: (DP + CRP) rows x NB*SUPER*P lanes
-            + (8 + max(8, cr)) * nbuf_batches * batch * 4
-            + 24 * batch * 4
-        )
-    else:
-        # yz form: accumulator / halo block + double-buffered pipeline block
-        # (3x CR*pd0*yz), the Khatri-Rao qt build (broadcast product +
-        # reshape copy + loop buffer: 3x yz*P), window matrices and
-        # point/value staging buffers.
-        vmem = (
-            3 * cr * pd[0] * yz * 4
-            + 3 * yz * batch * 4
-            + 2 * batch * sum(pd) * 4
-            + 24 * batch * 4
-        )
-    # Pipeline-pressure cliff (see VMEM_PRESSURE_BYTES): past ~9 MiB of
-    # estimated working set, the measured kernel pass runs ~1.66x slower
-    # (compute/DMA overlap lost).  Applied to the kernel-pass cost only —
-    # the DFT contractions are separate XLA ops outside the Pallas
-    # pipeline.
-    if vmem > VMEM_PRESSURE_BYTES:
-        kernel_pass_cost *= _VMEM_PRESSURE_FACTOR
-    return kernel_pass_cost + dft_cost, vmem
-
-
-def choose_geometry(
-    shape_over: Tuple[int, ...],
-    m: int,
-    *,
-    cr: int = 2,
-    np_hint: int = None,
-    batch_size: int = 128,
-    vmem_budget: int = VMEM_BUDGET_BYTES,
-    n_keep=None,
-    form: str = "yz",
-    spread_acc2: bool = False,
-    dma_super: int = 4,
-    precision: str = "highest",
-):
-    """Pick per-dimension block sizes by minimising the geometry cost model
-    under the VMEM budget (the C9 component: the TPU analogue of
-    block_dims_gpu_shmem, src/gpu_common.jl:19-92).
-
-    Each block dim must divide the oversampled grid size (so the periodic
-    overlap-add is a pure roll) and be >= the kernel half-support M (halos
-    may only touch immediate neighbour blocks).  ``np_hint`` is the expected
-    number of non-uniform points (defaults to a moderate density of 0.05
-    points per oversampled cell); pass the real value for optimal geometry.
-
-    Returns ``(block_dims, warnings)`` where warnings is a list of strings
-    (mirroring the reference's @warn on degenerate geometry,
-    src/gpu_common.jl:66-77).
-    """
-    D = len(shape_over)
-    total = 1
-    for n in shape_over:
-        total *= n
-    if np_hint is None:
-        np_hint = max(int(0.05 * total), 1)
-
-    per_dim = []
-    for d, n in enumerate(shape_over):
-        if 0 < d < D - 1:
-            # Middle dims may go down to one 8-sublane granule: pd1 = b1+2M
-            # rounded to 8, and the per-batch vector work scales with it —
-            # blocks (32, 8, 96) measured 12% faster than (48, 16, 96) at
-            # rho = 1 (PROFILE.md round-3 ladder).
-            lo = min(max(m, 8), n)
-        else:
-            lo = min(max(2 * m, 16), n)  # sub-16 dim-0 measured slower
-        cands = [b for b in _divisors(n) if lo <= b <= 512]
-        # The only hard tiling constraint left is inside the kernels (the
-        # padded dims are rounded to the 8-sublane granule and the DMA slot
-        # offsets are P-aligned by construction), so any divisor >= 2M is
-        # admissible.  The last dim is kept wide for lane utilisation:
-        # narrow trailing blocks measured strictly worse on v5e even at
-        # rho = 1 where the model prefers them ((48,16,24): 1629 ms vs
-        # (.., >=64): 1514 ms — the modelled MAC saving does not materialise
-        # against the narrow-lane/VPU overheads).
-        if D >= 2 and d == D - 1:
-            cands = [b for b in cands if b >= 64 or b == n]
-        if not cands:
-            cands = [n]
-        # Keep the search tractable: at most ~10 divisors per dim.
-        if len(cands) > 10:
-            step = len(cands) / 10.0
-            cands = [cands[int(i * step)] for i in range(10)]
-        per_dim.append(cands)
-
-    import itertools
-
-    best = None
-    best_cost = None
-    feasible = False
-    for dims in itertools.product(*per_dim):
-        cost, vmem = geometry_cost(
-            shape_over, dims, m, cr, np_hint, batch_size, n_keep=n_keep,
-            form=form, spread_acc2=spread_acc2, dma_super=dma_super,
-            precision=precision,
-        )
-        if vmem > vmem_budget:
-            continue
-        feasible = True
-        if best_cost is None or cost < best_cost:
-            best_cost, best = cost, dims
-
-    warnings = []
-    if not feasible:
-        # Fall back to the smallest admissible blocks and warn (reference
-        # errors/warns when the shared-memory budget cannot be met).
-        best = tuple(min(c) for c in per_dim)
-        warnings.append(
-            f"no block geometry fits the VMEM budget ({vmem_budget} B) for "
-            f"cr={cr}; falling back to minimal blocks {best} — expect "
-            "degraded performance. Reduce ntransforms or batch_size."
-        )
-    nblocks = 1
-    for n, b in zip(shape_over, best):
-        nblocks *= n // b
-    waste = 1.0 + nblocks * (batch_size - 1) / (2.0 * np_hint)
-    # Wasted padding slots only matter when the padded-slot work rivals the
-    # grid-sized stages: at low density the RATIO is necessarily large (one
-    # 128-slot quantum per non-empty block) but the absolute cost is noise
-    # next to the O(N^D) DFT/merge work, so a ratio-only warning just spams
-    # every low-rho plan (round-2 judge item).  Gate on the wasted slots
-    # being a meaningful fraction of the oversampled grid itself.
-    wasted_slots = nblocks * (batch_size - 1) / 2.0
-    if waste > 2.0 and wasted_slots > 0.02 * total:
-        warnings.append(
-            f"block geometry {best} yields ~{waste:.1f}x slot-padding waste "
-            f"at Np={np_hint} (nblocks={nblocks}, batch={batch_size}); "
-            "point density is low for this geometry — pass the real "
-            "np_hint so the geometry search can coarsen the blocks."
-        )
-    return best, warnings
-
-
-def choose_block_dims(shape_over: Tuple[int, ...], m: int) -> Tuple[int, ...]:
-    """Back-compat wrapper: cost-model geometry with default density."""
-    return choose_geometry(shape_over, m)[0]
-
-
-def num_blocks(shape_over: Sequence[int], block_dims: Sequence[int]) -> Tuple[int, ...]:
-    assert all(n % b == 0 for n, b in zip(shape_over, block_dims))
-    return tuple(n // b for n, b in zip(shape_over, block_dims))
 
 
 def cells_and_fracs(kernel_data, points: jnp.ndarray):
@@ -397,22 +38,9 @@ def cells_and_fracs(kernel_data, points: jnp.ndarray):
     return jnp.stack(cs), jnp.stack(xs)
 
 
-def cells_and_fracs_ds(kernel_data, pts_h: jnp.ndarray, pts_l: jnp.ndarray):
-    """Extended-precision twin of :func:`cells_and_fracs`: double-single
-    points (D, Np) pairs -> (cells int32, fracs_hi, fracs_lo), all (D, Np);
-    fraction accuracy ~2^-46 of a cell (windows.point_to_cell_split_ds)."""
-    cs, xh, xl = [], [], []
-    for d, kd in enumerate(kernel_data):
-        c, Xh, Xl = windows.point_to_cell_split_ds(pts_h[d], pts_l[d], kd.n)
-        cs.append(c)
-        xh.append(Xh)
-        xl.append(Xl)
-    return jnp.stack(cs), jnp.stack(xh), jnp.stack(xl)
-
-
 def block_ids_from_cells(cells: jnp.ndarray, kernel_data, block_dims) -> jnp.ndarray:
     """Flattened (row-major) block id per point from per-dim cell indices —
-    the exact same cells the kernels use, so a point can never land outside
+    the exact same cells the kernel uses, so a point can never land outside
     its block's padded window (reference: blocking/gpu.jl:145-160)."""
     D = cells.shape[0]
     nb = [kd.n // b for kd, b in zip(kernel_data, block_dims)]
@@ -423,458 +51,27 @@ def block_ids_from_cells(cells: jnp.ndarray, kernel_data, block_dims) -> jnp.nda
     return bid
 
 
-def compute_block_ids(kernel_data, block_dims, points: jnp.ndarray) -> jnp.ndarray:
-    """Flattened (row-major) block id per point; points (D, Np) raw."""
-    cells, _ = cells_and_fracs(kernel_data, points)
-    return block_ids_from_cells(cells, kernel_data, block_dims)
+def sort_into_blocks(kernel_data, block_dims: Sequence[int], points: jnp.ndarray):
+    """Bin-sort raw points (D, Np) by spatial block.
 
-
-def num_slots(np_: int, nblocks: int, batch: int) -> int:
-    """Static upper bound on the slotted layout size: every block's segment
-    is rounded up to a multiple of the point-batch size."""
-    bound = np_ + nblocks * (batch - 1)
-    return -(-bound // batch) * batch
-
-
-def sort_points_into_blocks(plan, points: jnp.ndarray):
-    """Bin points into a *slot-aligned* block layout — entirely scatter-free.
-
-    Every block owns a contiguous segment of "slots" whose start is a
-    multiple of the point-batch size P, so the Pallas kernels' DMA offsets
-    are provably tile-aligned (TPU DMA offsets along the lane dimension must
-    be 128-divisible) and no masking is needed inside the kernels: padding
-    slots carry zero values, which contribute nothing to spreading and whose
-    interpolation outputs are never gathered.
-
-    TPU note: XLA lowers general scatters to a *serial* loop on TPU (round-1
-    profiling measured ~4 s for a 1M-element scatter at the bench point), so
-    every construction here uses only ``sort_key_val``, vectorised binary
-    search (``searchsorted`` over the sorted keys, replacing the histogram +
-    prefix sum of the reference's counting sort, src/blocking/gpu.jl:162-198)
-    and gathers, all of which are fast vector ops on TPU.
-
-    Returns ``(slot_to_point, slot_valid, point_slots, batch_starts)``:
-
-    - ``slot_to_point``: (Nslots,) int32 original point index feeding each
-      slot (clamped to 0 in padding slots — mask with ``slot_valid``);
-    - ``slot_valid``: (Nslots,) bool, False in padding slots;
-    - ``point_slots``: (Np,) int32 slot of each original point (gathers
-      type-2 results back to input order — the inverse permutation,
-      reference: interpolation/gpu.jl:196-203);
-    - ``batch_starts``: (nblocks + 1,) int32 segment boundaries in units of
-      P (the reference's cumulative_npoints_per_block, batch-quantised).
-    """
-    block_dims = plan.block_dims
-    P = plan.batch_size
-    bid = compute_block_ids(plan.kernel_data, block_dims, points).astype(jnp.int32)
-    nblocks = int(np.prod(num_blocks(plan.shape_over, block_dims)))
-    return slot_layout(bid, nblocks, P)
-
-
-def slot_layout(bid: jnp.ndarray, nblocks: int, P: int, *, virtual: int = 0,
-                with_inverse: bool = False, sub_lx: jnp.ndarray = None,
-                sub_range: int = 1, window: Tuple[int, int, int] = None,
-                sub_ly: jnp.ndarray = None, sub_range_y: int = 1,
-                window_y: Tuple[int, int] = None, shifted: bool = False):
-    """Scatter-free slot-aligned layout from per-point block ids.
-
-    ``virtual`` extra trailing block ids (``nblocks .. nblocks+virtual-1``)
-    may be used as parking bins for invalid/padding points (the spatially
-    sharded path routes all-to-all padding there); their slots exist in the
-    layout but no kernel program ever reads them.
-
-    ``sub_lx`` (optional, values in [0, sub_range)) sub-sorts points within
-    each block — used with the per-point dim-0 cell so each batch's points
-    span a narrow x-window, which is what enables the kernels' windowed
-    accumulation (``window = (m, W, pd0, align)`` then also returns
-    per-batch window row starts ``batch_r0`` rounded down to ``align`` (the
-    kernel's sublane-offset granule: 8 for the yz form, 1 for the z form
-    whose row offsets are rm-strided); -1 marks batches that must take the
-    full-accumulator fallback: left-edge wrap or span > W).
-
-    ``sub_ly`` / ``sub_range_y`` / ``window_y = (W1, pd1)`` (optional,
-    requires ``sub_lx``) additionally sub-sort by the dim-1 cell within each
-    dim-0 cell and return per-batch 8-aligned dim-1 window starts
-    ``batch_r1`` (-1 = dim-0-only fallback) — the slots-layout counterpart
-    of packed_layout's 2D windows, used by the routed (spatial) path.
-
-    Returns ``(slot_to_point, slot_valid, point_slots, batch_starts,
-    batch_r0[, batch_r1 when window_y])``.
-    """
-    np_ = bid.shape[0]
-    ntot = nblocks + virtual
-    nslots = num_slots(np_, ntot, P)
-    nbatches = nslots // P
-
+    Returns ``(cells, fracs, perm, pstarts)``: the per-dim cells (int32)
+    and in-cell fractions in sorted order, ``perm`` (Np,) the original
+    index of each sorted point, and ``pstarts`` (nblocks + 1,) with block
+    ``b`` owning sorted positions ``[pstarts[b], pstarts[b+1])`` (the
+    reference's cumulative_npoints_per_block)."""
+    D, np_ = points.shape
+    cells, fracs = cells_and_fracs(kernel_data, points)
+    bid = block_ids_from_cells(cells, kernel_data, block_dims).astype(jnp.int32)
+    nblocks = int(np.prod([kd.n // b for kd, b in zip(kernel_data, block_dims)]))
     iota = jnp.arange(np_, dtype=jnp.int32)
-    sub_total = sub_range * sub_range_y
-    if sub_ly is not None:
-        assert sub_lx is not None, "sub_ly requires sub_lx"
-        key = (
-            bid * jnp.int32(sub_total)
-            + sub_lx.astype(jnp.int32) * jnp.int32(sub_range_y)
-            + sub_ly.astype(jnp.int32)
-        )
-    elif sub_lx is not None:
-        key = bid * jnp.int32(sub_range) + sub_lx.astype(jnp.int32)
-    else:
-        key = bid
-    sorted_key, perm = jax.lax.sort_key_val(key, iota)
-
-    # Per-block point ranges from the sorted keys (binary search, no
-    # histogram): pstarts[b] = first sorted position with bid >= b.
-    pstarts = jnp.searchsorted(
-        sorted_key,
-        jnp.arange(ntot + 1, dtype=jnp.int32)
-        * jnp.int32(sub_total if sub_ly is not None else sub_range),
-        side="left",
-    ).astype(jnp.int32)
-    counts = pstarts[1:] - pstarts[:-1]
-    batches = -(-counts // P)  # cdiv
-    batch_starts = jnp.concatenate(
-        [jnp.zeros(1, jnp.int32), jnp.cumsum(batches, dtype=jnp.int32)]
-    )
-
-    # Which block does each batch serve, and which sorted points feed it?
-    bidx = jnp.arange(nbatches, dtype=jnp.int32)
-    blk = jnp.clip(
-        jnp.searchsorted(batch_starts, bidx, side="right").astype(jnp.int32) - 1,
-        0,
-        ntot - 1,
-    )
-    batch_rank = bidx - jnp.take(batch_starts, blk)
-    first_sorted = jnp.take(pstarts, blk) + batch_rank * P  # (nbatches,)
-    limit_sorted = jnp.take(pstarts, blk + 1)
-
-    lane = jnp.arange(P, dtype=jnp.int32)
-    sidx = first_sorted[:, None] + lane[None, :]  # (nbatches, P)
-    slot_valid = (sidx < limit_sorted[:, None]).reshape(-1)
-    # Padding slots duplicate their segment's LAST point (not an arbitrary
-    # neighbour): the windowed kernels rely on lane P-1 carrying the batch's
-    # max sub-key, and duplicated coordinates are harmless (their values are
-    # masked to zero).
-    sidx = jnp.minimum(sidx, jnp.maximum(limit_sorted[:, None] - 1, 0))
-    sidx = jnp.clip(sidx.reshape(-1), 0, max(np_ - 1, 0))
-    slot_to_point = jnp.take(perm, sidx)
-
-    # Inverse map via a second sort (not a scatter): sorting (perm ->
-    # slot_sorted) pairs by perm yields the per-original-point slot.  The
-    # transforms themselves no longer need it (type-2 un-permutes its
-    # results with a masked sort over slot_to_point, which measured 2x
-    # faster than the gather on v5e) — it is kept behind a flag for callers
-    # that want the explicit inverse.
-    point_slots = None
-    div = sub_total if sub_ly is not None else sub_range
-    if with_inverse:
-        sorted_bid = sorted_key // jnp.int32(div) if sub_lx is not None else sorted_key
-        rank = iota - jnp.take(pstarts, sorted_bid)
-        slot_sorted = jnp.take(batch_starts, sorted_bid) * P + rank
-        _, point_slots = jax.lax.sort_key_val(perm, slot_sorted)
-
-    batch_r0 = None
-    batch_r1 = None
-    if window is not None:
-        m_, W, pd0, align = window
-        cap = max(np_ - 1, 0)
-        lc_first = jnp.take(sorted_key, jnp.clip(first_sorted, 0, cap)) % jnp.int32(div)
-        last_i = jnp.clip(jnp.minimum(first_sorted + P, limit_sorted) - 1, 0, cap)
-        lc_last = jnp.take(sorted_key, last_i) % jnp.int32(div)
-        if sub_ly is not None:
-            first_c = lc_first // jnp.int32(sub_range_y)
-            last_c = lc_last // jnp.int32(sub_range_y)
-        else:
-            first_c, last_c = lc_first, lc_last
-        if shifted:
-            # Halo-first rows i = lx + t (no wrap possible).
-            i_min = first_c
-            i_max = last_c + 2 * m_ - 1
-        else:
-            i_min = first_c - (m_ - 1)  # lowest row: j = lx - M + 1 (t = 0)
-            i_max = last_c + m_  # highest row: j = lx + M (t = 2M - 1)
-        # The clip ceiling must stay ``align``-aligned: the kernels promise
-        # Mosaic an 8-aligned dynamic sublane offset (pl.multiple_of), and a
-        # raw ``pd0 - W`` ceiling silently breaks that whenever the window
-        # would overrun the block rows (seen as device-only garbage at
-        # m=6/8 where pd0 - W is not a multiple of 8).  Batches the aligned
-        # ceiling cannot cover fall back to the full-block path via ``ok``.
-        r0 = jnp.clip((i_min // align) * align, 0, ((pd0 - W) // align) * align)
-        ok = i_max < r0 + W
-        if not shifted:
-            ok = ok & (first_c >= m_ - 1)  # core-first left-edge wrap
-        batch_r0 = jnp.where(ok, r0, -1).astype(jnp.int32)
-
-        if window_y is not None and sub_ly is not None:
-            # Per-batch dim-1 span over the batch's slot lanes (padding
-            # lanes duplicate the segment's last point, a real member of
-            # the batch, so min/max are undistorted).
-            W1, pd1 = window_y
-            c1_sorted = sorted_key % jnp.int32(sub_range_y)
-            c1_b = jnp.take(c1_sorted, sidx).reshape(nbatches, P)
-            big = jnp.int32(2**30)
-            v2d = slot_valid.reshape(nbatches, P)
-            ymin = jnp.min(jnp.where(v2d, c1_b, big), axis=1)
-            ymax = jnp.max(jnp.where(v2d, c1_b, -big), axis=1)
-            if shifted:
-                i_min1 = ymin
-                i_max1 = ymax + 2 * m_ - 1
-            else:
-                i_min1 = ymin - (m_ - 1)
-                i_max1 = ymax + m_
-            r1 = jnp.clip((i_min1 // 8) * 8, 0, ((pd1 - W1) // 8) * 8)
-            ok1 = ok & (i_max1 < r1 + W1)
-            if not shifted:
-                ok1 = ok1 & (ymin >= m_ - 1)
-            batch_r1 = jnp.where(ok1, r1, -1).astype(jnp.int32)
-
-    if window_y is not None:
-        return (
-            slot_to_point, slot_valid, point_slots, batch_starts, batch_r0,
-            batch_r1,
-        )
-    return slot_to_point, slot_valid, point_slots, batch_starts, batch_r0
-
-
-def packed_layout(
-    kernel_data, block_dims, points: jnp.ndarray, P: int, *,
-    window: Tuple[int, int, int] = None, window_y: Tuple[int, int] = None,
-    points_lo: jnp.ndarray = None, shifted: bool = False,
-    extra_lanes: int = 0,
-):
-    """Packed (gather-free) point layout: ONE multi-operand sort, no slot
-    expansion.
-
-    Points sort by ``key = bid * cells_per_block + linear_local_cell`` with
-    the per-dim fractions and the original index carried through the sort as
-    payload operands (measured: ~0.6 ms per extra operand at 1M points vs
-    ~8.4 ms for the slot gather it replaces).  The kernels then read
-    *contiguous* 128-aligned windows of the sorted array directly; a block's
-    first/last batch may overlap a neighbour block's points, which the
-    kernels mask out via the per-block point ranges (``pstarts``).
-
-    Returns ``(pts_rows, pstarts, batch_starts, batch_r0, perm)``:
-
-    - ``pts_rows``: (8, Np_pad) f32 — rows [key_bits(i32), f0.., fD-1,
-      idx_bits(i32), c0.., cD-1, zeros..] (int key/idx rows travel bit-cast
-      so one DMA serves the kernels; c_d are pre-decoded local cells as
-      exact floats); Np_pad = ceil(Np / P) * P;
-    - ``pstarts``: (nblocks + 1,) int32 sorted-position ranges per block;
-    - ``batch_starts``: (nblocks + 1,) int32 cumulative batch counts; block
-      b's batch j covers sorted lanes [Ab + j*P, Ab + (j+1)*P) with
-      ``Ab = (pstarts[b] // P) * P`` (derived in-kernel);
-    - ``batch_r0``: per-batch aligned accumulator window row starts
-      (None without ``window``; -1 marks full-accumulator fallback);
-    - ``batch_r1``: per-batch 8-aligned dim-1 window row starts (None
-      without ``window_y``; -1 marks the dim-0-only fallback);
-    - ``perm``: (Np_pad,) int32 sorted original indices (for the per-exec
-      value gather; tail padding repeats index 0).
-
-    Local cells are decoded from the sorted keys HERE (one vectorised divmod
-    pass) and shipped in the trailing rows, so the kernels read them
-    directly instead of running a per-batch divmod chain; the coordinate
-    payload through the sort is only D fraction rows.  Requires
-    prod(shape_over) < 2^31 (int32 keys).
-    """
-    D = points.shape[0]
-    np_ = points.shape[1]
-    if points_lo is not None:
-        # Extended-precision plans: double-single fractions ride the sort as
-        # D extra payload operands; the lo rows land AFTER the cell rows so
-        # the base row layout (and every non-ds kernel) is unchanged.
-        cells, fracs, fracs_lo = cells_and_fracs_ds(
-            kernel_data, points, points_lo
-        )
-        fracs = jnp.concatenate([fracs, fracs_lo], axis=0)
-    else:
-        cells, fracs = cells_and_fracs(kernel_data, points)
-    nb = [kd.n // b for kd, b in zip(kernel_data, block_dims)]
-    nblocks = int(np.prod(nb))
-    sub_range = 1
-    for b in block_dims:
-        sub_range *= int(b)
-    total_cells = nblocks * sub_range
-    assert total_cells < 2**31, "grid too large for int32 packed keys"
-
-    # key = bid * sub_range + lcell: block-major, linear local cell minor
-    # (so batches of sorted points span minimal (x, y) cell windows).
-    bid = None
-    lcell = None
-    for d in range(D):
-        bd = cells[d] // block_dims[d]
-        ld = cells[d] - bd * block_dims[d]
-        bid = bd if bid is None else bid * jnp.int32(nb[d]) + bd
-        lcell = ld if lcell is None else lcell * jnp.int32(block_dims[d]) + ld
-    key = bid * jnp.int32(sub_range) + lcell
-
-    np_pad = -(-max(np_, 1) // P) * P
-    # ``extra_lanes``: the super-batch DMA overhang rides the sort's
-    # sentinel tail directly (padding pts_rows AFTER the stack copies the
-    # whole multi-GB array — the rho=10 OOM).
-    np_pad += extra_lanes
-    pad = np_pad - np_
-    iota = jnp.arange(np_, dtype=jnp.int32)
-    if pad:
-        # Tail padding sorts to the very end (sentinel key) and is excluded
-        # by the last block's range mask (pstarts[nblocks] = Np).
-        key = jnp.concatenate([key, jnp.full((pad,), 2**31 - 1, jnp.int32)])
-        iota = jnp.concatenate([iota, jnp.zeros((pad,), jnp.int32)])
-        fracs = jnp.pad(fracs, ((0, 0), (0, pad)))
-    NF = fracs.shape[0]  # D (f32 plans) or 2D (ds plans: hi + lo rows)
     ops = jax.lax.sort(
-        (key,) + tuple(fracs[r] for r in range(NF)) + (iota,), num_keys=1
+        (bid,) + tuple(cells[d] for d in range(D))
+        + tuple(fracs[d] for d in range(D)) + (iota,),
+        num_keys=1,
     )
-    skey = ops[0]
-    sfracs = ops[1 : 1 + NF]
-    perm = ops[1 + NF]
-
     pstarts = jnp.searchsorted(
-        skey,
-        jnp.arange(nblocks + 1, dtype=jnp.int32) * jnp.int32(sub_range),
-        side="left",
+        ops[0], jnp.arange(nblocks + 1, dtype=jnp.int32), side="left"
     ).astype(jnp.int32)
-    counts = pstarts[1:] - pstarts[:-1]
-    A = (pstarts[:-1] // P) * P
-    nbatches_b = jnp.where(counts > 0, -(-(pstarts[1:] - A) // P), 0)
-    batch_starts = jnp.concatenate(
-        [jnp.zeros(1, jnp.int32), jnp.cumsum(nbatches_b, dtype=jnp.int32)]
-    )
-
-    batch_r0 = None
-    batch_r1 = None
-    if window is not None:
-        m_, W, pd0, align = window
-        nbatches_max = np_pad // P + nblocks
-        bidx = jnp.arange(nbatches_max, dtype=jnp.int32)
-        blk = jnp.clip(
-            jnp.searchsorted(batch_starts, bidx, side="right").astype(jnp.int32)
-            - 1,
-            0,
-            nblocks - 1,
-        )
-        brank = bidx - jnp.take(batch_starts, blk)
-        Ab = jnp.take(A, blk)
-        first = jnp.maximum(Ab + brank * P, jnp.take(pstarts, blk))
-        last = jnp.minimum(Ab + (brank + 1) * P, jnp.take(pstarts, blk + 1)) - 1
-        cap = np_pad - 1
-        kf = jnp.take(skey, jnp.clip(first, 0, cap)) % jnp.int32(sub_range)
-        kl = jnp.take(skey, jnp.clip(last, 0, cap)) % jnp.int32(sub_range)
-        yz_cells = sub_range // block_dims[0]
-        first_c = kf // jnp.int32(yz_cells)
-        last_c = kl // jnp.int32(yz_cells)
-        if shifted:
-            # Halo-first rows i = lx + t: the batch spans rows
-            # [first_c, last_c + 2m - 1] and can never wrap.
-            i_min = first_c
-            i_max = last_c + 2 * m_ - 1
-        else:
-            i_min = first_c - (m_ - 1)
-            i_max = last_c + m_
-        # The clip ceiling must stay ``align``-aligned: the kernels promise
-        # Mosaic an 8-aligned dynamic sublane offset (pl.multiple_of), and a
-        # raw ``pd0 - W`` ceiling silently breaks that whenever the window
-        # would overrun the block rows (seen as device-only garbage at
-        # m=6/8 where pd0 - W is not a multiple of 8).  Batches the aligned
-        # ceiling cannot cover fall back to the full-block path via ``ok``.
-        r0 = jnp.clip((i_min // align) * align, 0, ((pd0 - W) // align) * align)
-        ok = (i_max < r0 + W) & (last >= first)
-        if not shifted:
-            ok = ok & (first_c >= m_ - 1)  # core-first left-edge wrap
-        batch_r0 = jnp.where(ok, r0, -1).astype(jnp.int32)
-
-        if window_y is not None and D >= 3:
-            # Second-level (dim-1) window: per-batch min/max of the local
-            # y-cell over the batch's P-aligned sorted window, UNMASKED
-            # (edge lanes from a neighbouring block can only widen the
-            # window or force the dim-0-only fallback — their weights are
-            # zeroed in-kernel, so a too-wide window stays correct).
-            W1, pd1 = window_y
-            stride1 = 1
-            for bdim in block_dims[2:]:
-                stride1 *= int(bdim)
-            lc = skey % jnp.int32(sub_range)
-            c1 = (lc // jnp.int32(stride1)) % jnp.int32(block_dims[1])
-            pos_ok = jnp.arange(np_pad, dtype=jnp.int32) < jnp.int32(np_)
-            big = jnp.int32(2**30)
-            c1min = jnp.min(
-                jnp.where(pos_ok, c1, big).reshape(-1, P), axis=1
-            )
-            c1max = jnp.max(
-                jnp.where(pos_ok, c1, -big).reshape(-1, P), axis=1
-            )
-            widx = jnp.clip((Ab + brank * P) // P, 0, np_pad // P - 1)
-            ymin = jnp.take(c1min, widx)
-            ymax = jnp.take(c1max, widx)
-            if shifted:
-                i_min1 = ymin
-                i_max1 = ymax + 2 * m_ - 1
-            else:
-                i_min1 = ymin - (m_ - 1)
-                i_max1 = ymax + m_
-            r1 = jnp.clip((i_min1 // 8) * 8, 0, ((pd1 - W1) // 8) * 8)
-            ok1 = ok & (i_max1 < r1 + W1)
-            if not shifted:
-                ok1 = ok1 & (ymin >= m_ - 1)
-            batch_r1 = jnp.where(ok1, r1, -1).astype(jnp.int32)
-
-    rdt = fracs.dtype
-    if rdt == jnp.float64:
-        # f64 plans (CPU/interpret): int32 keys/indices are exactly
-        # representable — plain casts, no bitcasting.
-        key_row = skey.astype(rdt)
-        idx_row = perm.astype(rdt)
-    else:
-        key_row = jax.lax.bitcast_convert_type(skey, jnp.float32)
-        idx_row = jax.lax.bitcast_convert_type(perm, jnp.float32)
-    rows = [key_row] + [sfracs[d].astype(rdt) for d in range(D)]
-    rows.append(idx_row)
-    # Pre-decoded local cells in the (otherwise zero-padded) trailing rows:
-    # one vectorised divmod pass here replaces the kernels' per-batch decode
-    # chain (~7 integer div/rem VPU ops on the critical path before the
-    # weight build).  Cells are < max(block_dims) <= 2^24, exact as floats;
-    # tail/edge lanes decode to the same in-range values the in-kernel
-    # chain produced (garbage-but-masked semantics unchanged).
-    rem = jax.lax.rem(skey, jnp.int32(sub_range))
-    for d in range(D):
-        stride = 1
-        for bdim in block_dims[d + 1:]:
-            stride *= int(bdim)
-        rows.append((rem // jnp.int32(stride)).astype(rdt))
-        rem = jax.lax.rem(rem, jnp.int32(stride))
-    # ds plans: lo-fraction rows after the cell rows (rows 2+2D .. 2+3D-1).
-    for r in range(D, NF):
-        rows.append(sfracs[r].astype(rdt))
-    DP = -(-(len(rows)) // 8) * 8
-    while len(rows) < DP:
-        rows.append(jnp.zeros((np_pad,), rdt))
-    pts_rows = jnp.stack(rows, axis=0)
-    # The UNSORTED key (first np_ lanes) rides back so exec-time value
-    # permutation can be ONE stable payload sort keyed by it — bitwise
-    # identical ordering to the points sort (lax.sort is stable), replacing
-    # the inverse-positions map whose construction cost a SECOND full sort
-    # in set_points (~30 ms of the 127 ms rho=1 set stage, PROFILE.md
-    # round-5 set_points ladder).
-    return pts_rows, pstarts, batch_starts, batch_r0, batch_r1, perm, key
-
-
-
-def max_packed_batches(np_: int, nblocks: int, P: int) -> int:
-    """Static bound on the packed layout's total batch count (each block's
-    aligned coverage adds at most one extra batch)."""
-    return -(-max(np_, 1) // P) + nblocks
-
-
-def gather_slots(x: jnp.ndarray, slot_to_point, slot_valid, *, rows: int = None,
-                 mask: bool = True) -> jnp.ndarray:
-    """Lay out per-point data ``x`` (R, Np) into the slot-aligned layout
-    (rows, Nslots) with a single gather (TPU scatters are serial — see
-    sort_points_into_blocks).  Rows are zero-padded up to ``rows`` (sublane
-    alignment for the kernels' DMA slices).  ``mask=False`` skips zeroing the
-    padding slots (safe for coordinates: padded columns then duplicate point
-    0, whose kernel weights multiply zero *values*)."""
-    R = x.shape[0]
-    rows = rows or R
-    if rows != R:
-        x = jnp.pad(x, ((0, rows - R), (0, 0)))
-    out = jnp.take(x, slot_to_point, axis=1)
-    if mask:
-        out = out * slot_valid.astype(x.dtype)[None, :]
-    return out
+    cells_s = jnp.stack(ops[1 : 1 + D])
+    fracs_s = jnp.stack(ops[1 + D : 1 + 2 * D])
+    return cells_s, fracs_s, ops[-1], pstarts

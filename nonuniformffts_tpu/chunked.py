@@ -1,32 +1,25 @@
-"""Points-chunked execution: huge point sets in bounded HBM.
+"""Points-chunked execution: huge point sets in bounded device memory.
 
 The reference's benchmark protocol sweeps to rho = 10 — 167.8M points on a
 256^3 grid (benchmark/CPU+CUDA/run_benchmarks.jl:394-404) — a scale where
 the per-point pipeline temporaries (the multi-operand ``lax.sort`` in
-``set_points``, the exec-time value permutation and the type-2 un-permute
-sort) each carry several full-size copies of the point payload next to the
-persistent ~6.7 GB packed point structure, exceeding the v5e's 16 GB HBM.
+``set_points``, the exec-time value permutation, the stencil chunks) each
+carry several full-size copies of the point payload.
 
 This module processes the point set in ``nchunks`` contiguous slices of the
-ORIGINAL point order, each an independent bin-sorted half-size plan sharing
-one geometry.  The grid-sized stages are shared or cheap:
+ORIGINAL point order, each an independent plan sharing one geometry.  The
+grid-sized stages are shared or cheap:
 
 - ``set_points``: one ``lax.scan`` over chunks — each iteration's sort
   temporaries are chunk-sized and freed before the next chunk runs;
-- type 1: spread + forward DFT per chunk, spectra summed (linearity; the
-  extra (K-1) forward DFTs are ~tens of ms against multi-second point
-  stages at this scale);
-- type 2: ONE deconvolve+pad and ONE backward DFT build the halo buffer,
-  then interpolation + un-permute run per chunk over the shared buffer.
-  Because chunks partition the original order, per-chunk outputs
-  concatenate directly — no global merge sort.
+- type 1: spread + forward FFT per chunk, spectra summed (linearity);
+- type 2: ONE deconvolve+pad and ONE backward FFT build the grid, then
+  interpolation runs per chunk over the shared grid.  Because chunks
+  partition the original order, per-chunk outputs concatenate directly —
+  no global merge sort.
 
-Numerics match the unchunked path up to f32 summation-order differences in
-the type-1 spectrum accumulation.
-
-No counterpart exists in the reference (its CUDA path streams through
-global-memory atomics and never materialises sorted payload copies); this
-is the TPU-native answer to the same scale requirement.
+Numerics match the unchunked path up to summation-order differences in the
+type-1 spectrum accumulation.
 """
 
 from __future__ import annotations
@@ -52,7 +45,7 @@ class ChunkedPlan:
     """A NUFFT plan whose point set executes in ``nchunks`` slices.
 
     ``template`` is an ordinary :class:`Plan` built for ~Np/nchunks points;
-    after :func:`set_points_chunked`, ``plans`` holds ``nchunks`` bin-sorted
+    after :func:`set_points_chunked`, ``plans`` holds ``nchunks`` point-set
     copies of it stacked leaf-wise (every data leaf gains a leading chunk
     axis), and ``num_points_total`` the true (pre-padding) point count.
     """
@@ -79,11 +72,6 @@ def ChunkedPlanNUFFT(dtype, shape, *, nchunks: int, np_hint: Optional[int] = Non
     """
     if nchunks < 1:
         raise ValueError(f"nchunks must be >= 1, got {nchunks}")
-    if kwargs.get("precision") == "double" and np.dtype(dtype).itemsize in (8, 16):
-        raise NotImplementedError(
-            "points-chunked execution is not wired for extended-precision "
-            "(ds) plans; drop nchunks or precision='double'"
-        )
     if np_hint is not None:
         np_hint = -(-int(np_hint) // nchunks)
     tmpl = PlanNUFFT(dtype, shape, np_hint=np_hint, **kwargs)
@@ -184,9 +172,9 @@ def exec_type2_ch_chunked(cplan: ChunkedPlan, uhat_ch: jnp.ndarray,
                           callbacks: NUFFTCallbacks = _EMPTY_CALLBACKS):
     """Channel-form type 2 over chunks.
 
-    One pad + backward DFT builds the halo/grid buffer; interpolation runs
-    per chunk against it inside a ``lax.scan`` (one chunk's un-permute sort
-    temporaries live at a time).  Returns the PADDED ``(C, [2,] K*npk)``
+    One pad + backward FFT builds the grid; interpolation runs per chunk
+    against it inside a ``lax.scan`` (one chunk's temporaries live at a
+    time).  Returns the PADDED ``(C, [2,] K*npk)``
     channel values; :func:`exec_type2_chunked` slices to the true Np.
     """
     from .execution import (

@@ -15,17 +15,14 @@ Everything is functional and jit-compiled as one XLA program per
 
 Channel representation
 ----------------------
-Complex data internally travels as real (re, im) *channel* pairs — shape
-``(C, 2, ...)`` — because the TPU backend used here implements neither
-complex dot products nor complex host<->device transfers.  Two public
-surfaces exist:
+Between the stages, complex data travels as real (re, im) *channel* pairs —
+shape ``(C, 2, ...)`` — the form the blocked kernel reads and the points-
+chunked driver (chunked.py) and the grid-sharded driver (parallel/spatial.py)
+accumulate.  Two public surfaces exist:
 
 - :func:`exec_type1` / :func:`exec_type2`: the reference-style complex API.
-  Host numpy inputs are split into channels on the host (never device_put as
-  complex); outputs are device complex arrays (assembled on device).
-- :func:`exec_type1_channels` / :func:`exec_type2_channels`: the channel API
-  — all-real inputs and outputs, safe to transfer on any backend.  This is
-  the recommended interface on TPU.
+- :func:`exec_type1_channels` / :func:`exec_type2_channels`: the channel
+  API — all-real inputs and outputs.
 """
 
 from __future__ import annotations
@@ -37,13 +34,13 @@ import jax.numpy as jnp
 import numpy as np
 
 from .callbacks import NUFFTCallbacks, apply_nonuniform_callback
-from .ops import fft, matmul_fft
+from .ops import fft
 from .ops.deconvolve import (
     _apply_uniform_callback,
     deconvolve_pad,
     deconvolve_truncate,
 )
-from .ops.interpolation import interpolate_reference
+from .ops.interpolation import interpolate_cells, interpolate_reference
 from .ops.spreading import spread_reference
 from .plan import Plan
 
@@ -69,81 +66,19 @@ def _from_channels(ch: jnp.ndarray) -> jnp.ndarray:
     return jax.lax.complex(ch[:, 0], ch[:, 1])
 
 
-def _host_to_channels(x, dtype) -> np.ndarray:
-    """Split complex host data into channels on the host, so complex arrays
-    never cross the host->device boundary."""
-    x = np.asarray(x)
-    return np.stack([x.real, x.imag], axis=1).astype(np.dtype(dtype).type(0).real.dtype)
-
-
-def _host_to_channels_ds(x, *, real: bool = False) -> np.ndarray:
-    """complex128 host data -> ds channel form (C, 2, 2, ...) f32 with
-    axis 2 = (hi, lo); float64 host data (``real=True``) -> (C, 2, ...)
-    with axis 1 = (hi, lo).  The hi/lo split happens on the host: f64
-    arrays do not exist on TPU devices."""
-    from .ops.ds import split_array_np
-
-    x = np.asarray(x)
-    if real:
-        h, l = split_array_np(x.astype(np.float64))
-        return np.stack([h, l], axis=1)
-    ch = np.stack([x.real, x.imag], axis=1)  # (C, 2, ...) f64
-    h, l = split_array_np(ch)
-    return np.stack([h, l], axis=2)
-
-
-def _ds_channels_to_complex(out) -> np.ndarray:
-    """ds channel form (C, 2, 2, ...) -> complex128 HOST array (the device
-    cannot hold complex128; extended-precision results return as numpy)."""
-    out = np.asarray(out, dtype=np.float64)
-    re = out[:, 0, 0] + out[:, 0, 1]
-    im = out[:, 1, 0] + out[:, 1, 1]
-    return re + 1j * im
-
-
-def _ds_channels_to_real(out) -> np.ndarray:
-    """Real ds channel form (C, 2, ...) -> float64 HOST array."""
-    out = np.asarray(out, dtype=np.float64)
-    return out[:, 0] + out[:, 1]
-
-
-#: Marker for the ds type-2 pad stage: the deconvolution scaling (and the
-#: uniform callback) already happened host-side in f64 — skip the device
-#: ds scaling.  (A plain object: hashable, so it rides the static
-#: ``callbacks`` argument of the jitted stages.)
-_DS_PRESCALED = "__ds_host_prescaled__"
-
-
-def _ds_host_apply(fn, *arrays):
-    """Run a callback-applying jax function on the HOST CPU in scoped f64.
-
-    ds plans marshal through the host anyway (the device cannot hold f64),
-    so user callbacks run here at full precision — the counterpart of the
-    reference fusing them into its f64 kernels (src/plan.jl:62-164).  The
-    fusion points commute with the host boundary: type-1's nonuniform
-    callback precedes the spread read, type-1's uniform / type-2's
-    nonuniform follow the last device stage, and type-2's uniform applies
-    to the deconvolution-scaled spectrum which is reproduced host-side
-    from the (hi, lo) factor pairs."""
-    with jax.enable_x64(True), jax.default_device(jax.devices("cpu")[0]):
-        return np.asarray(fn(*(jnp.asarray(a) for a in arrays)))
-
-
-def _ds_phihat64(plan) -> list:
-    """Per-dim f64 deconvolution factors reconstructed from the (hi, lo)
-    device pairs."""
-    return [
-        np.asarray(h, np.float64) + np.asarray(l, np.float64)
-        for h, l in zip(plan.phihat_inv, plan.phihat_inv_lo)
-    ]
-
-
-def _spread(plan: Plan, vp: jnp.ndarray) -> jnp.ndarray:
-    """Spreading with native (complex or real) values."""
+def _t1_spread_stage(plan: Plan, vp_ch: jnp.ndarray) -> jnp.ndarray:
+    """Spreading: channel values -> native (complex or real) grid
+    (C,) + shape_over."""
     if plan.spread_method == "blocked":
         from .ops.pallas import spread_blocked
 
-        return spread_blocked(plan, vp)
+        C = vp_ch.shape[0]
+        flat = vp_ch.reshape((-1, vp_ch.shape[-1]))  # (CR, Np)
+        g = spread_blocked(plan, flat)
+        if plan.is_real:
+            return g
+        return _from_channels(g.reshape((C, 2) + g.shape[1:]))
+    vp = vp_ch if plan.is_real else _from_channels(vp_ch).astype(plan.dtype)
     if plan.point_perm is not None:  # sort_points: points stored cell-major
         vp = jnp.take(vp, plan.point_perm, axis=-1)
     return spread_reference(
@@ -152,63 +87,11 @@ def _spread(plan: Plan, vp: jnp.ndarray) -> jnp.ndarray:
     )
 
 
-def _spread_ch(plan: Plan, vp_ch: jnp.ndarray) -> jnp.ndarray:
-    """Channel-form spreading for complex plans: (C, 2, Np) -> (C, 2, ...)."""
-    if plan.spread_method == "blocked":
-        from .ops.pallas import spread_blocked
-
-        return spread_blocked(plan, vp_ch, channel_input=True, channel_output=True)
-    g = _spread(plan, _from_channels(vp_ch).astype(plan.dtype))
-    return _to_channels(g)
-
-
-def _interpolate(plan: Plan, grid: jnp.ndarray) -> jnp.ndarray:
-    if plan.spread_method == "blocked":
-        from .ops.pallas import interpolate_blocked
-
-        return interpolate_blocked(plan, grid)
-    out = interpolate_reference(
-        plan.kernel_data, plan.evalmode, grid, plan.points, plan.normfactor,
-        chunk_size=plan.chunk_size,
-    )
-    if plan.point_perm is not None:  # un-permute back to input order
-        out = jnp.take(out, plan.point_perm_inv, axis=-1)
-    return out
-
-
-def _interpolate_ch(plan: Plan, grid_ch: jnp.ndarray) -> jnp.ndarray:
-    """Channel-form interpolation for complex plans: (C, 2, ...) ->
-    (C, 2, Np)."""
-    if plan.spread_method == "blocked":
-        from .ops.pallas import interpolate_blocked
-
-        return interpolate_blocked(
-            plan, grid_ch, channel_input=True, channel_output=True
-        )
-    gc = _from_channels(grid_ch).astype(plan.complex_dtype)
-    return _to_channels(_interpolate(plan, gc))
-
-
-def _scale_phihat(u: jnp.ndarray, plan: Plan) -> jnp.ndarray:
-    D = plan.ndim
-    for d, ph_inv in enumerate(plan.phihat_inv):
-        shape = [1] * (u.ndim)
-        shape[u.ndim - D + d] = ph_inv.shape[0]
-        u = u * ph_inv.reshape(shape)
-    return u
-
-
 def _apply_nonuniform_ch(plan, vp_ch, callback):
     """Nonuniform callback on channel data (complex plans: assemble complex
     on device — elementwise complex ops only)."""
     if callback is None:
         return vp_ch
-    if plan.ds:
-        raise NotImplementedError(
-            "on extended-precision plans callbacks run host-side in f64: "
-            "use exec_type1/exec_type2 (the channel-form API cannot carry "
-            "them)"
-        )
     if plan.is_real:
         return apply_nonuniform_callback(vp_ch, callback)
     v = _from_channels(vp_ch).astype(plan.dtype)
@@ -216,211 +99,77 @@ def _apply_nonuniform_ch(plan, vp_ch, callback):
 
 
 # ---------------------------------------------------------------------------
-# Channel-core implementations (jitted)
+# Per-stage helpers (shared by the fused jit path, the staged/timed path and
+# the points-chunked driver)
 # ---------------------------------------------------------------------------
 
 
-# Per-stage helpers (shared by the fused jit path and the staged/timed path)
-
-
-def _use_blockform(plan: Plan) -> bool:
-    """Single-chip blocked + pruned-matmul path: the halo merge / gather and
-    the block<->grid relayout are folded into the DFT factor matrices
-    (matmul_fft.forward_dft_blockform / backward_dft_blockform); there is no
-    overlap_add or halo_gather pass at all."""
-    return bool(plan.fft_axes_block)
-
-
-def _use_blockform_t2(plan: Plan) -> bool:
-    return _use_blockform(plan)
-
-
-def _t1_spread_stage(plan: Plan, vp_ch: jnp.ndarray):
-    if plan.ds:
-        from .ops.pallas.blocked_ds import spread_blocked_ds
-
-        return spread_blocked_ds(plan, vp_ch)  # (hi, lo) buffer pair
-    if _use_blockform(plan):
-        from .ops.pallas import spread_blocked
-
-        if plan.is_real:
-            return spread_blocked(plan, vp_ch, raw_output=True)
-        buf = spread_blocked(
-            plan, vp_ch, channel_input=True, raw_output=True
-        )  # (2C,) + nb + pd
-        C = vp_ch.shape[0]
-        return buf.reshape((C, 2) + buf.shape[1:])
-    if plan.fft_method == "matmul":
-        return _spread(plan, vp_ch) if plan.is_real else _spread_ch(plan, vp_ch)
-    vp = vp_ch if plan.is_real else _from_channels(vp_ch).astype(plan.dtype)
-    return _spread(plan, vp)
-
-
 def _t1_fft_stage(plan: Plan, g: jnp.ndarray):
-    if plan.ds:
-        from .ops.ds import ds_mul, split_scalar
-
-        fwd_ds = (
-            matmul_fft.forward_dft_blockform_ds_real
-            if plan.is_real
-            else matmul_fft.forward_dft_blockform_ds
-        )
-        hi, lo = fwd_ds(g[0], g[1], plan.fft_axes_block, nl=plan.ds_nl)
-        nh, nl_ = split_scalar(plan.normfactor)
-        return ds_mul(hi, lo, jnp.float32(nh), jnp.float32(nl_))
-    if _use_blockform(plan):
-        fwd = (
-            matmul_fft.forward_dft_blockform_z
-            if plan.kernel_form == "z"
-            else matmul_fft.forward_dft_blockform
-        )
-        spec = fwd(
-            g, plan.fft_axes_block, real=plan.is_real, prec=plan.precision
-        )
-        return spec * jnp.asarray(plan.normfactor, spec.dtype)
-    if plan.fft_method == "matmul":
-        if plan.fft_variant == "pruned":
-            # Truncation + deconvolution are baked into the factor matrices
-            # (matmul_fft.make_pruned_axis_dft); only the scalar
-            # normalisation stays outside (it fuses into the epilogue and
-            # must respect normfactor_override on sharded local views).
-            spec = matmul_fft.forward_dft_pruned(
-                g, plan.fft_axes, real=plan.is_real, prec=plan.precision
-            )
-            return spec * jnp.asarray(plan.normfactor, spec.dtype)
-        # Deconvolution-fused split driver: truncation interleaves with the
-        # per-axis DFTs (~30% less DFT work at sigma=1.5) and the scaling
-        # rides along; _t1_deconv_stage then only applies the callback.
-        return matmul_fft.forward_fft_deconv(
-            g, plan.fft_axes, plan.index_ranges, plan.phihat_inv,
-            plan.normfactor, real=plan.is_real, prec=plan.precision,
-        )
     return fft.forward_fft(g, real=plan.is_real)
 
 
 def _t1_deconv_stage(plan: Plan, spec, callbacks: NUFFTCallbacks):
-    if plan.ds:
-        if callbacks.uniform is not None:
-            raise NotImplementedError(
-                "on extended-precision plans callbacks run host-side in "
-                "f64: use exec_type1 (the channel-form API cannot carry "
-                "them)"
-            )
-        return jnp.stack(spec, axis=2)  # ds channel form (C, 2, 2) + spec
-    if plan.fft_method == "matmul":
-        out_ch = spec  # already truncated + scaled in the fused DFT
-    else:
-        uhat = deconvolve_truncate(
-            spec, plan.index_ranges, plan.phihat_inv, plan.normfactor, callback=None
-        )
-        out_ch = _to_channels(uhat)
-    if callbacks.uniform is not None:
-        u = _from_channels(out_ch).astype(plan.complex_dtype)
-        u = _apply_uniform_callback(u, callbacks.uniform)
-        out_ch = _to_channels(u)
-    return out_ch
+    uhat = deconvolve_truncate(
+        spec, plan.index_ranges, plan.phihat_inv, plan.normfactor,
+        callback=callbacks.uniform,
+    )
+    return _to_channels(uhat.astype(plan.complex_dtype))
 
 
 def _t2_pad_stage(plan: Plan, uhat_ch: jnp.ndarray, callbacks: NUFFTCallbacks):
-    if plan.ds:
-        from .ops.ds import ds_mul
-
-        if callbacks.uniform == _DS_PRESCALED:
-            # exec_type2 already scaled + applied the callback host-side.
-            return uhat_ch[:, :, 0], uhat_ch[:, :, 1]
-        if callbacks.uniform is not None:
-            raise NotImplementedError(
-                "on extended-precision plans callbacks run host-side in "
-                "f64: use exec_type2 (the channel-form API cannot carry "
-                "them)"
-            )
-        xh, xl = uhat_ch[:, :, 0], uhat_ch[:, :, 1]  # (C, 2) + spec each
-        D = plan.ndim
-        for d, (ph, pl_) in enumerate(zip(plan.phihat_inv, plan.phihat_inv_lo)):
-            shp = [1] * xh.ndim
-            shp[2 + d] = ph.shape[0]
-            xh, xl = ds_mul(xh, xl, ph.reshape(shp), pl_.reshape(shp))
-        return xh, xl
-    C = uhat_ch.shape[0]
-    if callbacks.uniform is not None:
-        u = _from_channels(uhat_ch).astype(plan.complex_dtype)
-        u = _scale_phihat(u, plan)
-        u = _apply_uniform_callback(u, callbacks.uniform)
-        uhat_ch = _to_channels(u)
-        phinv = None
-    else:
-        phinv = plan.phihat_inv
-    if plan.fft_method == "matmul":
-        # Scale on the small (non-oversampled) spectrum; padding is fused
-        # into the per-axis backward DFTs in _t2_fft_stage.
-        if phinv is not None:
-            xr, xi = uhat_ch[:, 0], uhat_ch[:, 1]
-            for d, ph in enumerate(phinv):
-                shape = [1] * xr.ndim
-                shape[1 + d] = ph.shape[0]
-                xr = xr * ph.reshape(shape)
-                xi = xi * ph.reshape(shape)
-            uhat_ch = jnp.stack([xr, xi], axis=1)
-        return uhat_ch
-    flat = uhat_ch.reshape((2 * C,) + uhat_ch.shape[2:])
-    flat = deconvolve_pad(flat, plan.spectral_shape_over, plan.index_ranges, phinv)
-    return flat.reshape((C, 2) + flat.shape[1:])
+    u = _from_channels(uhat_ch).astype(plan.complex_dtype)
+    return deconvolve_pad(
+        u, plan.spectral_shape_over, plan.index_ranges, plan.phihat_inv,
+        callback=callbacks.uniform,
+    )
 
 
-def _t2_fft_stage(plan: Plan, spec_ch: jnp.ndarray):
-    if plan.ds:
-        bwd_ds = (
-            matmul_fft.backward_dft_blockform_ds_real
-            if plan.is_real
-            else matmul_fft.backward_dft_blockform_ds
-        )
-        return bwd_ds(spec_ch[0], spec_ch[1], plan.fft_axes_block, nl=plan.ds_nl)
-    if _use_blockform_t2(plan):
-        # Emits the halo-gathered padded block buffer directly (input is
-        # already deconvolution-scaled by _t2_pad_stage).
-        bwd = (
-            matmul_fft.backward_dft_blockform_z
-            if plan.kernel_form == "z"
-            else matmul_fft.backward_dft_blockform
-        )
-        return bwd(
-            spec_ch, plan.fft_axes_block, real=plan.is_real,
-            prec=plan.precision,
-        )
-    if plan.fft_method == "matmul":
-        if plan.fft_variant == "pruned":
-            # Zero-padding is baked into the (n_keep, n_over) backward
-            # factor rows; input is already deconvolution-scaled by
-            # _t2_pad_stage.
-            return matmul_fft.backward_dft_pruned(
-                spec_ch, plan.fft_axes, real=plan.is_real, prec=plan.precision
-            )
-        return matmul_fft.backward_fft_pad(
-            spec_ch, plan.fft_axes, plan.index_ranges, plan.shape_over,
-            real=plan.is_real, prec=plan.precision,
-        )
-    uhat_over = _from_channels(spec_ch).astype(plan.complex_dtype)
-    return fft.backward_fft(uhat_over, plan.shape_over, real=plan.is_real)
+def _t2_fft_stage(plan: Plan, spec: jnp.ndarray):
+    return fft.backward_fft(spec, plan.shape_over, real=plan.is_real)
 
 
 def _t2_interp_stage(plan: Plan, grid):
-    if plan.ds:
-        from .ops.pallas.blocked_ds import interpolate_blocked_ds
-
-        return interpolate_blocked_ds(plan, grid[0], grid[1])
-    if _use_blockform_t2(plan):
-        from .ops.pallas import interpolate_blocked
-
-        if plan.is_real:
-            return interpolate_blocked(plan, None, halos_in=grid)
-        buf = grid.reshape((grid.shape[0] * 2,) + grid.shape[2:])
-        return interpolate_blocked(
-            plan, None, halos_in=buf, channel_output=True
+    """Interpolation: native grid -> channel values in the caller's point
+    order."""
+    if plan.spread_method == "blocked":
+        out = interpolate_cells(
+            plan.kernel_data, plan.evalmode, grid, plan.cells, plan.fracs,
+            plan.normfactor, chunk_size=plan.chunk_size,
         )
-    if plan.fft_method == "matmul":
-        return _interpolate(plan, grid) if plan.is_real else _interpolate_ch(plan, grid)
-    vp = _interpolate(plan, grid)
-    return vp if plan.is_real else _to_channels(vp)
+        # Sorted order -> the caller's order.
+        out = jnp.zeros_like(out).at[:, plan.sort_perm].set(
+            out, unique_indices=True
+        )
+    else:
+        out = interpolate_reference(
+            plan.kernel_data, plan.evalmode, grid, plan.points,
+            plan.normfactor, chunk_size=plan.chunk_size,
+        )
+        if plan.point_perm is not None:  # un-permute back to input order
+            out = jnp.take(out, plan.point_perm_inv, axis=-1)
+    return out if plan.is_real else _to_channels(out)
+
+
+def _direct_type1(plan: Plan, vp_ch, callbacks: NUFFTCallbacks):
+    from .ops.direct import exec_type1_direct_ch
+
+    # Exact dense sums: no grid, no FFT, no deconvolution.
+    out_ch = exec_type1_direct_ch(plan, vp_ch)
+    if callbacks.uniform is not None:
+        u = _from_channels(out_ch).astype(plan.complex_dtype)
+        out_ch = _to_channels(_apply_uniform_callback(u, callbacks.uniform))
+    return out_ch
+
+
+def _direct_type2(plan: Plan, uhat_ch, callbacks: NUFFTCallbacks):
+    from .ops.direct import exec_type2_direct_ch
+
+    if callbacks.uniform is not None:
+        # No deconvolution scaling exists on the direct path; the callback
+        # applies to the user spectrum as-is.
+        u = _from_channels(uhat_ch).astype(plan.complex_dtype)
+        uhat_ch = _to_channels(_apply_uniform_callback(u, callbacks.uniform))
+    return exec_type2_direct_ch(plan, uhat_ch)
 
 
 @partial(jax.jit, static_argnames=("callbacks",))
@@ -429,12 +178,7 @@ def _exec_type1_ch_impl(plan: Plan, vp_ch: jnp.ndarray, callbacks: NUFFTCallback
     Returns the channel-form spectrum (C, 2) + spectral_shape."""
     vp_ch = _apply_nonuniform_ch(plan, vp_ch, callbacks.nonuniform)
     if plan.spread_method == "direct":
-        from .ops.direct import exec_type1_direct_ch
-
-        # Exact dense sums — no grid/FFT stages; _t1_deconv_stage is a
-        # structural no-op on the matmul engine and only applies the
-        # uniform callback.
-        return _t1_deconv_stage(plan, exec_type1_direct_ch(plan, vp_ch), callbacks)
+        return _direct_type1(plan, vp_ch, callbacks)
     g = _t1_spread_stage(plan, vp_ch)
     spec = _t1_fft_stage(plan, g)
     return _t1_deconv_stage(plan, spec, callbacks)
@@ -445,19 +189,11 @@ def _exec_type2_ch_impl(plan: Plan, uhat_ch: jnp.ndarray, callbacks: NUFFTCallba
     """uhat_ch: channel-form spectrum (C, 2) + spectral_shape.
     Returns (C, Np) real plans | (C, 2, Np) complex plans."""
     if plan.spread_method == "direct":
-        from .ops.direct import exec_type2_direct_ch
-
-        if callbacks.uniform is not None:
-            # No deconvolution scaling exists on the direct path; the
-            # callback applies to the user spectrum as-is.
-            u = _from_channels(uhat_ch).astype(plan.complex_dtype)
-            u = _apply_uniform_callback(u, callbacks.uniform)
-            uhat_ch = _to_channels(u)
-        vp_ch = exec_type2_direct_ch(plan, uhat_ch)
-        return _apply_nonuniform_ch(plan, vp_ch, callbacks.nonuniform)
-    spec_ch = _t2_pad_stage(plan, uhat_ch, callbacks)
-    grid = _t2_fft_stage(plan, spec_ch)
-    vp_ch = _t2_interp_stage(plan, grid)
+        vp_ch = _direct_type2(plan, uhat_ch, callbacks)
+    else:
+        spec = _t2_pad_stage(plan, uhat_ch, callbacks)
+        grid = _t2_fft_stage(plan, spec)
+        vp_ch = _t2_interp_stage(plan, grid)
     return _apply_nonuniform_ch(plan, vp_ch, callbacks.nonuniform)
 
 
@@ -576,13 +312,11 @@ def exec_type1(plan: Plan, vp, callbacks: NUFFTCallbacks = None) -> jnp.ndarray:
 
     ``vp`` has shape ``(Np,)`` or ``(ntransforms, Np)`` and the plan's dtype;
     the output has shape ``plan.spectral_shape`` (plus the leading component
-    axis if present) and complex dtype.  On TPU backends without complex
-    transfer support, prefer :func:`exec_type1_channels`.
+    axis if present) and complex dtype.
     """
     _check_points(plan)
     callbacks = callbacks or _EMPTY_CALLBACKS
-    is_host = not isinstance(vp, jnp.ndarray)
-    vp = np.asarray(vp) if is_host else vp
+    vp = vp if isinstance(vp, jnp.ndarray) else np.asarray(vp)
     if vp.dtype != plan.dtype:
         raise TypeError(
             f"non-uniform data must have dtype {plan.dtype}, got {vp.dtype}"
@@ -592,36 +326,8 @@ def exec_type1(plan: Plan, vp, callbacks: NUFFTCallbacks = None) -> jnp.ndarray:
         raise ValueError(
             f"number of values {vp.shape[1]} != number of points {plan.num_points}"
         )
-    if plan.ds:
-        # Extended-precision plans: values split into (hi, lo) f32 channel
-        # pairs on the host; the result returns as a HOST complex128 array
-        # (f64 cannot live on the device).  Callbacks run host-side in f64
-        # (_ds_host_apply): nonuniform before the split (the reference
-        # fuses it at the spread read — inputs are never modified either
-        # way), uniform on the final spectrum (the reference fuses it after
-        # the deconvolve scaling, which is exactly this value).
-        vp_h = np.asarray(vp)
-        if callbacks.nonuniform is not None:
-            vp_h = _ds_host_apply(
-                lambda v: apply_nonuniform_callback(v, callbacks.nonuniform),
-                vp_h,
-            )
-        vp_ch = jnp.asarray(_host_to_channels_ds(vp_h, real=plan.is_real))
-        out_ch = _dispatch_type1(plan, vp_ch, _EMPTY_CALLBACKS)
-        uhat = _ds_channels_to_complex(out_ch)
-        if callbacks.uniform is not None:
-            from .ops.deconvolve import _apply_uniform_callback
-
-            uhat = _ds_host_apply(
-                lambda w: _apply_uniform_callback(w, callbacks.uniform), uhat
-            )
-        return uhat if had_axis else uhat[0]
-    if plan.is_real:
-        vp_ch = jnp.asarray(vp)
-    elif is_host:
-        vp_ch = jnp.asarray(_host_to_channels(vp, plan.dtype))
-    else:
-        vp_ch = _to_channels(vp)
+    vp = jnp.asarray(vp)
+    vp_ch = vp if plan.is_real else _to_channels(vp)
     out_ch = _dispatch_type1(plan, vp_ch, callbacks)
     uhat = _from_channels(out_ch).astype(plan.complex_dtype)
     return uhat if had_axis else uhat[0]
@@ -632,13 +338,11 @@ def exec_type2(plan: Plan, uhat, callbacks: NUFFTCallbacks = None) -> jnp.ndarra
 
     ``uhat`` has shape ``plan.spectral_shape`` (optionally with a leading
     component axis) and complex dtype; output ``(Np,)`` / ``(ntransforms,
-    Np)`` in the plan's dtype.  On TPU backends without complex transfer
-    support, prefer :func:`exec_type2_channels`.
+    Np)`` in the plan's dtype.
     """
     _check_points(plan)
     callbacks = callbacks or _EMPTY_CALLBACKS
-    is_host = not isinstance(uhat, jnp.ndarray)
-    uhat = np.asarray(uhat) if is_host else uhat
+    uhat = uhat if isinstance(uhat, jnp.ndarray) else np.asarray(uhat)
     if uhat.dtype != plan.complex_dtype:
         raise TypeError(
             f"uniform data must have dtype {np.dtype(plan.complex_dtype)}, "
@@ -649,45 +353,7 @@ def exec_type2(plan: Plan, uhat, callbacks: NUFFTCallbacks = None) -> jnp.ndarra
         raise ValueError(
             f"uniform data shape {uhat.shape[1:]} != expected {plan.spectral_shape}"
         )
-    if plan.ds:
-        uhat_h = np.asarray(uhat)
-        cbs_down = _EMPTY_CALLBACKS
-        if callbacks.uniform is not None:
-            # Reference semantics: the uniform callback sees the
-            # deconvolution-SCALED spectrum (src/NonuniformFFTs.jl:453-480).
-            # Scale host-side in f64 from the (hi, lo) factor pairs, apply
-            # the callback, and tell the pad stage to skip its ds scaling.
-            from .ops.deconvolve import _apply_uniform_callback
-
-            for d, ph64 in enumerate(_ds_phihat64(plan)):
-                shp = [1] * uhat_h.ndim
-                shp[1 + d] = ph64.shape[0]
-                uhat_h = uhat_h * ph64.reshape(shp)
-            uhat_h = _ds_host_apply(
-                lambda w: _apply_uniform_callback(w, callbacks.uniform),
-                uhat_h,
-            )
-            cbs_down = NUFFTCallbacks(uniform=_DS_PRESCALED)
-        uhat_ch = jnp.asarray(_host_to_channels_ds(uhat_h))
-        vp_ch = _dispatch_type2(plan, uhat_ch, cbs_down)
-        vp = (
-            _ds_channels_to_real(vp_ch)
-            if plan.is_real
-            else _ds_channels_to_complex(vp_ch)
-        )
-        if callbacks.nonuniform is not None:
-            vp = _ds_host_apply(
-                lambda v: apply_nonuniform_callback(v, callbacks.nonuniform),
-                vp,
-            )
-        return vp if had_axis else vp[0]
-    if is_host:
-        uhat_ch = jnp.asarray(
-            np.stack([uhat.real, uhat.imag], axis=1).astype(plan.real_dtype)
-        )
-    else:
-        uhat_ch = _to_channels(uhat)
-    vp_ch = _dispatch_type2(plan, uhat_ch, callbacks)
+    vp_ch = _dispatch_type2(plan, _to_channels(jnp.asarray(uhat)), callbacks)
     if plan.is_real:
         vp = vp_ch.astype(plan.dtype)
     else:
@@ -696,7 +362,7 @@ def exec_type2(plan: Plan, uhat, callbacks: NUFFTCallbacks = None) -> jnp.ndarra
 
 
 # ---------------------------------------------------------------------------
-# Public API: all-real channel interface (TPU-safe transfers)
+# Public API: all-real channel interface
 # ---------------------------------------------------------------------------
 
 
@@ -706,15 +372,12 @@ def exec_type1_channels(plan: Plan, vp_ch, callbacks: NUFFTCallbacks = None):
     ``vp_ch``: real plans ``(Np,)``/``(C, Np)``; complex plans ``(2, Np)`` /
     ``(C, 2, Np)`` with channel 0 = Re, 1 = Im.  Returns the channel-form
     spectrum ``(2,) + spectral_shape`` / ``(C, 2) + spectral_shape`` — always
-    a real array, safe to transfer from any backend.
+    a real array.
     """
     _check_points(plan)
     callbacks = callbacks or _EMPTY_CALLBACKS
     vp_ch = jnp.asarray(vp_ch)
-    if plan.is_real:
-        tail = 2 if plan.ds else 1  # ds-real: (C, 2, Np) hi/lo pairs
-    else:
-        tail = 3 if plan.ds else 2
+    tail = 1 if plan.is_real else 2
     vp_ch, had_axis = _as_components(vp_ch, plan, expected_tail_ndim=tail)
     out_ch = _dispatch_type1(plan, vp_ch, callbacks)
     return out_ch if had_axis else out_ch[0]
@@ -731,8 +394,7 @@ def exec_type2_channels(plan: Plan, uhat_ch, callbacks: NUFFTCallbacks = None):
     callbacks = callbacks or _EMPTY_CALLBACKS
     uhat_ch = jnp.asarray(uhat_ch)
     uhat_ch, had_axis = _as_components(
-        uhat_ch, plan,
-        expected_tail_ndim=plan.ndim + (2 if plan.ds else 1),
+        uhat_ch, plan, expected_tail_ndim=plan.ndim + 1
     )
     vp_ch = _dispatch_type2(plan, uhat_ch, callbacks)
     return vp_ch if had_axis else vp_ch[0]

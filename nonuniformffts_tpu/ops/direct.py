@@ -1,25 +1,17 @@
-"""Direct NUDFT for tiny point sets: one MXU contraction, no grid.
+"""Direct NUDFT: the exact transform sums as dense matrix products, no grid.
 
-At very low density the blocked pipeline pays a fixed grid-sized floor —
-two oversampled-grid matmul-DFTs plus the empty-block program sweep —
-regardless of how few points there are (~40 ms at N=256^3 for 1,678 points,
-PROFILE.md round-5 low-density analysis).  Below the MAC crossover
+For a handful of points it is cheaper to evaluate the type-1/type-2 sums
+*exactly* as dense DFT matrices than to pay the grid-sized FFT floor: no
+window, no oversampling, no deconvolution — the achieved "error" is the
+contraction precision itself (~2e-7 in f32).  Only an explicit
+``spread_method='direct'`` selects it.
 
-    8 * Np * prod(spectral_shape)  <  2 * 4 * prod(shape_over) * sum(L_d)
-
-it is cheaper to evaluate the type-1/type-2 sums *exactly* as dense DFT
-matrices: no window, no oversampling, no deconvolution — the achieved
-"error" is the contraction precision itself (~2e-7 at HIGHEST), better
-than the windowed pipeline's 1e-6.
-
-The reference has no such path (its GPU kernels amortise the grid cost via
-atomics; the crossover only exists on TPU where the grid stages are dense
-MXU programs).  The blocker solved here is PHASE PRECISION: e^{-ik.x} with
-k up to N/2 and x up to 2pi carries k*x*2^-24 ~ 5e-5 rad of f32 noise if
-evaluated naively.  ``_phase_trig`` reduces k*x mod 2pi in an exact
-split-product cascade (x split so k*x_hi is exact, 2pi split into three
-exact-product terms) leaving ~4e-7 rad of error — below the f32 cos/sin
-ulp floor.  See docs/design.md (direct-NUDFT section).
+The blocker solved here is PHASE PRECISION: e^{-ik.x} with k up to N/2 and
+x up to 2pi carries k*x*2^-24 ~ 5e-5 rad of f32 noise if evaluated
+naively.  ``_phase_trig`` reduces k*x mod 2pi in an exact split-product
+cascade (x split so k*x_hi is exact, 2pi split into three exact-product
+terms) leaving ~4e-7 rad of error — below the f32 cos/sin ulp floor.  See
+docs/design.md (direct-NUDFT section).
 
 Shapes (channel form, C = ntransforms):
   type 1:  values (C, 2, Np) | (C, Np) real  ->  spectrum (C, 2) + spec
@@ -93,9 +85,10 @@ def _tail_factor(trig):
 
 
 def _prec(plan):
-    from .matmul_fft import PRECISIONS
-
-    return PRECISIONS.get(plan.precision, jax.lax.Precision.HIGHEST)
+    # Full-precision products: a GPU would otherwise run float32 matrix
+    # products in TF32 (~3 decimal digits).
+    del plan
+    return jax.lax.Precision.HIGHEST
 
 
 def exec_type1_direct_ch(plan, vp_ch: jnp.ndarray) -> jnp.ndarray:
@@ -166,8 +159,9 @@ def exec_type2_direct_ch(plan, uhat_ch: jnp.ndarray) -> jnp.ndarray:
             u_im = u_im * w
         if plan.ndim == 1:
             # v_j = sum_k0 G0[j, k0] * u[k0]
-            v_re = g0_re @ u_re[:, 0] - g0_im @ u_im[:, 0]
-            v_im = g0_re @ u_im[:, 0] + g0_im @ u_re[:, 0]
+            mv = lambda a, b: jnp.matmul(a, b, precision=prec)
+            v_re = mv(g0_re, u_re[:, 0]) - mv(g0_im, u_im[:, 0])
+            v_im = mv(g0_re, u_im[:, 0]) + mv(g0_im, u_re[:, 0])
         else:
             dot = lambda a, b: jnp.matmul(a, b, precision=prec)
             m_re = dot(g_t_re, u_re.T) - dot(g_t_im, u_im.T)  # (Np, N0)
@@ -179,15 +173,3 @@ def exec_type2_direct_ch(plan, uhat_ch: jnp.ndarray) -> jnp.ndarray:
         else:
             outs.append(jnp.stack([v_re, v_im]))
     return jnp.stack(outs)
-
-
-def direct_macs(np_pts: int, spectral_shape) -> float:
-    """Real MACs for ONE direct transform (4 real dots of the big factor)."""
-    return 4.0 * np_pts * float(np.prod(spectral_shape, dtype=np.float64))
-
-
-def blocked_dft_macs(shape_over) -> float:
-    """Real-MAC estimate of ONE grid-sized matmul-DFT pass (the low-density
-    floor the direct path competes with): sum_d 4 * prod(shape_over) * L_d."""
-    total = float(np.prod(shape_over, dtype=np.float64))
-    return 4.0 * total * float(sum(shape_over))

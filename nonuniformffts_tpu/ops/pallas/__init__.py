@@ -1,3 +1,5 @@
-from .blocked import spread_blocked, interpolate_blocked
+"""Pallas kernels (Triton route) of the blocked fast path."""
 
-__all__ = ["spread_blocked", "interpolate_blocked"]
+from .spread import spread_blocked
+
+__all__ = ["spread_blocked"]

@@ -1,413 +1,19 @@
-"""Shared pieces of the blocked (Pallas) fast path.
+"""Periodic halo merge for the blocked spread path (plain jnp).
 
-Geometry, in-kernel window evaluation, block-local window-matrix
-construction, and the jnp-side periodic halo merge (overlap-add) and halo
-gather.
-
-TPU-native design notes (this is where the architecture deliberately departs
-from the reference's CUDA-style kernels):
-
-- No atomics and no scatter anywhere.  Points are bin-sorted by spatial block
-  (blocking.py), so each Pallas program owns one output block outright — the
-  ownership guarantee replaces the reference's shared-memory zero-atomic
-  schedule (src/spreading/gpu.jl:237-434) *and* its global-memory atomic adds.
-- Window weights become small dense matrices ``W^T (pd, P)`` per dimension
-  (built with 2M branchless compare-selects against a static iota), and the
-  tensor-product spread/gather becomes MXU matmuls over the point batch —
-  scatter turned into dense linear algebra, which is the shape TPUs want.
-- Each program accumulates into a padded VMEM block (halo ring of 2M-1); the
-  periodic merge across blocks is a separable, deterministic roll-and-add in
-  jnp (the counterpart of the reference's split_periodic block->global merge,
-  src/spreading/cpu_blocked.jl:3-36, made race-free by construction).
-- Blocks are laid out interleaved as (CR, nb0, p0, nb1, p1, ...) straight
-  from the kernel's BlockSpec, so the merge needs no HBM transpose.
+The spread kernel (ops/pallas/spread.py) gives every spatial block a padded
+accumulator of its own, so no two programs ever write the same bytes.  This
+module folds those padded blocks back into the periodic oversampled grid —
+the counterpart of the reference's block -> global merge
+(src/spreading/cpu_blocked.jl:3-36), made deterministic by ownership.
 """
 
 from __future__ import annotations
 
-import math
-from typing import Sequence, Tuple
-
 import jax
 import jax.numpy as jnp
 
-from .. import windows
-from ..windows import FastApproximation, KernelData
-from ...utils.besseli0 import besseli0_poly
 
-TWO_PI = 2.0 * math.pi
-
-
-def round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def padded_block_dims(block_dims: Sequence[int], m: int) -> Tuple[int, ...]:
-    """Per-dim padded block sizes: B + 2M - 1 halo, rounded up to the
-    8-sublane granule so VMEM reshapes merging/splitting them (the
-    channel-stacked (CR*p0, yz) accumulator and trailing-dim merges) are
-    tile-aligned.  Padded rows/columns stay exactly zero (windows never
-    reach them)."""
-    return tuple(round_up(b + 2 * m - 1, 8) for b in block_dims)
-
-
-def padded_block_dims_z(block_dims: Sequence[int], m: int) -> Tuple[int, ...]:
-    """Padded block sizes for the z-form kernel layout: the LAST dim (the
-    kernels' lane dimension) rounds up to the 128-lane granule, so the
-    buffer layout (CR, nb0, pd0, .., L_last) is physically unpadded, every
-    merge/split reshape around it is free, and the blockform DFT reads /
-    writes the kernels' layout with no relayout transpose."""
-    pads = [round_up(b + 2 * m - 1, 8) for b in block_dims[:-1]]
-    pads.append(round_up(block_dims[-1] + 2 * m - 1, 128))
-    return tuple(pads)
-
-
-def coefficient_stack(kernel_data: Sequence[KernelData]) -> jnp.ndarray:
-    """Stack the per-dim window coefficient arrays into one (D, 2M, ncoef)
-    input for the kernels (dummy zeros when a kernel family needs none).
-
-    TAP-MAJOR: coefficient q of tap t sits at [d, t, q], so the in-kernel
-    all-taps Horner reads each step's coefficients as a (2M, 1) sublane
-    column — a natural layout slice.  (The per-tap layout would need a
-    lane->sublane transpose per step inside the kernel.)"""
-    arrs = []
-    for kd in kernel_data:
-        if kd.cs_poly is not None:
-            arrs.append(kd.cs_poly.T)
-        elif kd.cs_gauss is not None:
-            arrs.append(kd.cs_gauss[:, None])
-        else:
-            arrs.append(jnp.zeros((2 * kd.m, 1), dtype=jnp.float32))
-    return jnp.stack(arrs)
-
-
-def window_values_lanes(kd: KernelData, evalmode, c_row: jnp.ndarray,
-                        X: jnp.ndarray, cs: jnp.ndarray):
-    """In-kernel window evaluation for one dimension.
-
-    ``c_row``: (1, P) cell indices stored as exact floats (set_points's
-    high-accuracy split, windows.point_to_cell_split); ``X``: (1, P) in-cell
-    fractions; ``cs``: (2M, ncoef) tap-major coefficient array for this dim
-    (loaded from VMEM).  Returns ``(c, vals)`` with ``c`` the (1, P) int32
-    cells and ``vals`` the (2M, P) all-taps weight matrix; row ``t`` is the
-    weight of grid node ``c - M + 1 + t``.
-    """
-    return c_row.astype(jnp.int32), window_weights(kd, evalmode, X, cs)
-
-
-def _two_sum(a, b):
-    s = a + b
-    z = s - a
-    return s, (a - (s - z)) + (b - z)
-
-
-def _two_prod(a, b):
-    """Exact f32 product a*b = p + e via bit-masked operand splitting
-    (ops.ds._mask_hi): integer mantissa truncation instead of the Veltkamp
-    float chain, which the Pallas interpreter can evaluate at higher
-    intermediate precision and silently collapse (see ds._mask_hi)."""
-    from ..ds import _mask_hi
-
-    p = a * b
-    a_hi = _mask_hi(a)
-    a_lo = a - a_hi
-    b_hi = _mask_hi(b)
-    b_lo = b - b_hi
-    e = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo
-    return p, e
-
-
-def window_weights(kd: KernelData, evalmode, X: jnp.ndarray, cs: jnp.ndarray,
-                   *, ds: bool = False):
-    """Per-node window weights from in-cell fractions only.
-
-    ``X``: (1, P) in-cell fractions; ``cs``: (2M, ncoef) TAP-MAJOR
-    coefficient array for this dim (see coefficient_stack).  Returns ONE
-    (2M, P) array; row ``t`` is the weight of grid node ``c - M + 1 + t``.
-
-    All 2M taps evaluate in a single (2M, P) op chain: the per-tap (1, P)
-    formulation occupied the VPU for full (8, P) vector-register ops while
-    using one sublane — stacking the taps on sublanes is ~8x fewer issued
-    vector ops for the same math (the dominant per-point cost of the
-    round-2 kernels).
-
-    ``ds=True`` (precision='double' plans, f32 only): compensated Horner —
-    every step's rounding error is captured with TwoProd/TwoSum and folded
-    back, taking the weight accuracy from ~2e-6 (the measured f32 Horner
-    floor, the dominant term of the f32 pipeline) to the f32 representation
-    limit ~6e-8.
-
-    Same math as ops.windows.eval_window_frac, restructured as (tap, lane)
-    matrices so everything stays in natural TPU (sublane, lane) layouts.
-    """
-    m, n = kd.m, kd.n
-    dt = X.dtype
-    fast = isinstance(evalmode, FastApproximation)
-    two_m = 2 * m
-    P = X.shape[-1]
-
-    if kd.kind in ("kb", "bkb") and fast:
-        z = jnp.broadcast_to(2.0 * X - 1.0, (two_m, P))
-        ncoef = cs.shape[-1]
-        if ds and dt == jnp.float32:
-            v = jnp.broadcast_to(cs[:, ncoef - 1 : ncoef], (two_m, P))
-            ve = jnp.zeros((two_m, P), dt)
-            for q in range(ncoef - 2, -1, -1):
-                p, pe = _two_prod(v, z)
-                v, se = _two_sum(p, jnp.broadcast_to(cs[:, q : q + 1], (two_m, P)))
-                ve = ve * z + (pe + se)
-            return v + ve
-        v = jnp.broadcast_to(cs[:, ncoef - 1 : ncoef], (two_m, P))
-        for q in range(ncoef - 2, -1, -1):
-            v = v * z + cs[:, q : q + 1]
-        return v
-
-    # Direct paths: the tap offset t is a (2M, 1) sublane iota.  Mosaic's
-    # tpu.iota only produces integers — a float iota verifies in interpret
-    # mode but fails Mosaic verification on device.
-    t_col = jax.lax.broadcasted_iota(jnp.int32, (two_m, 1), 0).astype(dt)
-
-    if kd.kind == "kb":  # direct (peak-normalised; see KernelData.peak)
-        # besseli0_poly, not jax.scipy's i0: bessel_i0e has no Mosaic
-        # lowering (utils/besseli0.py).
-        beta = jnp.asarray(kd.beta, dt)
-        y = (m - 1.0 - t_col + X) / m
-        s = jnp.sqrt(jnp.maximum(1.0 - y * y, 0.0))
-        return besseli0_poly(beta * s) * jnp.asarray(1.0 / kd.peak, dt)
-
-    if kd.kind == "bkb":  # direct: one exp pair, peak-normalised with
-        # shifted exponents so every intermediate stays <= 1 (the raw
-        # sinh's e^beta over/underflows the f32 pipeline at m >= 6; see
-        # windows._eval_bkb_direct).
-        beta = jnp.asarray(kd.beta, dt)
-        y = (m - 1.0 - t_col + X) / m
-        s = jnp.sqrt(jnp.maximum(1.0 - y * y, 0.0))
-        bs = beta * s
-        em = jnp.exp(bs - beta)
-        ep = jnp.exp(-bs - beta)
-        sinh_s = 0.5 * (em - ep)  # sinh(bs) * e^{-beta}
-        ratio = jnp.where(
-            bs == 0.0,
-            jnp.asarray(math.exp(-kd.beta), dt),
-            sinh_s / jnp.where(bs == 0.0, 1.0, bs),
-        )
-        pref = kd.beta / (-0.5 * math.expm1(-2.0 * kd.beta))
-        return ratio * jnp.asarray(pref, dt)
-
-    if kd.kind == "gaussian":
-        # One exp per node; the Greengard-Lee ladder saves nothing on the VPU.
-        dx = jnp.asarray(kd.dx, dt)
-        inv_tau = jnp.asarray(1.0 / kd.tau, dt)
-        y = (m - 1.0 - t_col + X) * dx
-        return jnp.exp(-(y * y) * inv_tau)
-
-    if kd.kind == "bspline":
-        return jnp.concatenate(
-            [
-                jnp.broadcast_to(v, (1, P))
-                for v in windows.bspline_values_list(1.0 - X, two_m)
-            ],
-            axis=0,
-        )
-
-    raise ValueError(kd.kind)
-
-
-def coefficient_stack_ds(kernel_data: Sequence[KernelData]):
-    """Double-single coefficient stacks for the extended-precision kernels:
-    two (D, 2M, ncoef) f32 arrays (hi, lo) from the f64 host solve (the lo
-    residual is stored by windows.make_kernel_data(ds=True))."""
-    hs, ls = [], []
-    for kd in kernel_data:
-        if kd.cs_poly is None or kd.cs_poly_lo is None:
-            raise ValueError(
-                "extended-precision plans require (B)KB kernels with "
-                "FastApproximation (ds coefficient pairs)"
-            )
-        hs.append(kd.cs_poly.T.astype(jnp.float32))
-        ls.append(kd.cs_poly_lo.T.astype(jnp.float32))
-    return jnp.stack(hs), jnp.stack(ls)
-
-
-def window_weights_ds(kd: KernelData, Xh: jnp.ndarray, Xl: jnp.ndarray,
-                      cs_h: jnp.ndarray, cs_l: jnp.ndarray):
-    """Double-single window weights: (2M, P) (hi, lo) pair from ds in-cell
-    fractions and ds coefficient pairs — the full-pair version of the
-    compensated Horner (window_weights ds=True), used by the
-    extended-precision kernels.  (B)KB FastApproximation only."""
-    from ..ds import ds_horner, two_sum
-
-    # z = 2X - 1 in ds: 2*Xh is exact; the -1 rounding is captured.
-    zh, ze = two_sum(2.0 * Xh, -1.0)
-    zl = ze + 2.0 * Xl
-    return ds_horner(cs_h, cs_l, zh, zl)
-
-
-def build_wt_matrix(vals, c, block_origin, m: int, pd: int, P: int, B: int,
-                    *, shifted: bool = False):
-    """Build the transposed window matrix W^T (pd, P) for one dimension.
-
-    Two row layouts:
-
-    **core-first** (default; the yz form and the overlap_add path): a point
-    in cell ``c`` (block-local ``lx = c - b*B``, in ``[0, B)``) touches
-    nodes ``j = lx - M + 1 + t`` for ``t = 0..2M-1``,
-    ``j in [-(M-1), B+M-1]``.  Local row ``i``:
-
-    - ``j in [0, B)``      -> ``i = j``              (core rows, offset 0)
-    - ``j in [B, B+M)``    -> ``i = j``              (right halo, rows B..B+M)
-    - ``j in [-(M-1), 0)`` -> ``i = j + B + 2M - 1`` (left halo, after right)
-
-    i.e. ``i = j`` except negative ``j`` wrap to the tail.  Core-first puts
-    the core at aligned offset 0 and the full halo in one contiguous chunk
-    ``[B, B+2M-1)`` — which is what lets overlap_add extract the core with a
-    plain aligned slice + transpose (scripts/exp_bw2.py) instead of
-    relayouting the whole padded buffer.
-
-    **halo-first / shifted** (``shifted=True``; the z-form blockform path):
-    ``i = lx + t`` — the left halo sits at the head, rows are contiguous
-    for EVERY point (no wrap), so every batch qualifies for the windowed
-    accumulation path (the wrap-fallback class of full-accumulator batches
-    disappears — measured ~19 ms per kernel at rho=1, PROFILE.md round-5
-    'branch' strip).  The blockform DFT absorbs the different row meaning
-    through its row map (matmul_fft.blockform_row_map shifted=True);
-    nothing outside the kernels + factor matrices sees the layout.
-
-    Built with 2M branchless compare-selects against a static sublane
-    iota — no gather, no scatter.  ``vals``: the (2M, P) all-taps weight
-    matrix (window_weights).  The taps of one point land on DISTINCT rows,
-    so each tap select writes INTO the accumulator (no add needed).
-    """
-    if pd >= 48 and pd % 8 == 0 and (shifted or m <= 9):
-        # Tall matrices: the octave-placement form does the same placement
-        # in ~2x fewer vector ops (it stages taps in a 16-row strip instead
-        # of selecting over all pd rows per tap).  Core-first m >= 10 would
-        # put the first tap row j0 = lx - (m-1) at octave q = -2, which the
-        # strip wrap handling does not cover; shifted rows never go
-        # negative, so the octave form applies at every m there.
-        return _build_wt_matrix_octave(
-            vals, c, block_origin, m, pd, P, B, shifted=shifted
-        )
-    lx = c - block_origin
-    iota = jax.lax.broadcasted_iota(jnp.int32, (pd, P), 0)
-    w = jnp.zeros((pd, P), dtype=vals.dtype)
-    for t in range(vals.shape[0]):
-        v = jax.lax.slice_in_dim(vals, t, t + 1, axis=0)
-        if shifted:
-            i = lx + t
-        else:
-            j = lx - (m - 1) + t
-            i = jnp.where(j < 0, j + B + 2 * m - 1, j)
-        w = jnp.where(iota == i, v, w)
-    return w
-
-
-def _build_wt_matrix_octave(vals, c, block_origin, m: int, pd: int, P: int,
-                            B: int, *, shifted: bool = False):
-    """Octave-placement variant of :func:`build_wt_matrix` (identical
-    output, used automatically for large ``pd``).  The per-tap form issues
-    2M compare-selects over the FULL (pd, P) matrix — O(2M * pd * P) VPU
-    work, the dominant in-kernel VPU item for the z-form kernels' last
-    dimension (pd ~ 104).  This form exploits that one point's 2M taps are
-    CONTIGUOUS rows j0..j0+2M-1: stage them into a small (SR, P) strip at
-    the in-octave offset d = j0 & 7 (2M selects over SR ~ 16 rows), then
-    place the strip's 8-row segments into the output octaves with one
-    select per (octave, segment) pair — O(2M*SR*P + (pd/8)*nseg*8*P),
-    ~2x fewer vector ops at pd = 104, m = 4.  Core-first only: the
-    left-halo wrap rows (j < 0 -> tail row B + 2m - 1 + j, disjoint from
-    every non-wrap row) are a static row-remap of the strip, gated on the
-    q == -1 lanes.  ``shifted`` (halo-first): j0 = lx >= 0 — no wrap rows,
-    no q == -1 gate."""
-    two_m = vals.shape[0]
-    if shifted:
-        j0 = c - block_origin  # first tap's row i = lx + 0, in [0, B)
-    else:
-        j0 = c - block_origin - (m - 1)  # first tap's row, in [-(m-1), B-m]
-    d = jnp.bitwise_and(j0, 7)
-    q = jnp.right_shift(j0, 3)  # arithmetic shift: j0 < 0 -> q == -1
-    # Strip: rows s = d + t, s in [0, 7 + 2M).
-    SR = round_up(7 + two_m, 8)
-    nseg = SR // 8
-    iota_s = jax.lax.broadcasted_iota(jnp.int32, (SR, P), 0)
-    strip = jnp.zeros((SR, P), vals.dtype)
-    for t in range(two_m):
-        v = jax.lax.slice_in_dim(vals, t, t + 1, axis=0)
-        strip = jnp.where(iota_s == d + t, v, strip)
-    segs = [
-        jax.lax.slice_in_dim(strip, 8 * k, 8 * (k + 1), axis=0)
-        for k in range(nseg)
-    ]
-    # Wrap rows (static map, core-first only): output row i = j + B + 2m - 1
-    # for tap row j in [-(m-1), -1]; on the q == -1 lanes j = s - 8, so i
-    # sources strip row s = i - (B + 2m - 9).
-    wrap_src = (
-        {} if shifted else {j + B + 2 * m - 1: j + 8 for j in range(-(m - 1), 0)}
-    )
-    zrow = jnp.zeros((1, P), vals.dtype)
-    q_lo = 0 if shifted else -1
-    is_q = {qq: q == qq for qq in range(q_lo, pd // 8)}
-    octs = []
-    for o in range(pd // 8):
-        w_oct = jnp.zeros((8, P), vals.dtype)
-        for k in range(nseg):
-            # Segment k of the strip lands at octave q + k.
-            qq = o - k
-            if q_lo <= qq < pd // 8:
-                w_oct = w_oct + jnp.where(is_q[qq], segs[k], 0.0)
-        rows0 = 8 * o
-        if any(rows0 <= i < rows0 + 8 for i in wrap_src):
-            slab = jnp.concatenate(
-                [
-                    jax.lax.slice_in_dim(
-                        strip, wrap_src[rows0 + r], wrap_src[rows0 + r] + 1,
-                        axis=0,
-                    )
-                    if (rows0 + r) in wrap_src
-                    else zrow
-                    for r in range(8)
-                ],
-                axis=0,
-            )
-            w_oct = w_oct + jnp.where(is_q[-1], slab, 0.0)
-        octs.append(w_oct)
-    return jnp.concatenate(octs, axis=0)
-
-
-def build_wt_matrix_window(vals, c, block_origin, m: int, W: int, P: int, r0,
-                           *, shifted: bool = False):
-    """Windowed W0^T (W, P) for batches whose points span rows
-    [r0, r0 + W) of the padded block.  Core-first: the per-batch window
-    metadata guarantees no left-edge wrap (j = lx - M + 1 + t >= 0);
-    shifted (halo-first): rows i = lx + t are non-negative by
-    construction, so every batch qualifies."""
-    lx = c - block_origin
-    iota = jax.lax.broadcasted_iota(jnp.int32, (W, P), 0)
-    w = jnp.zeros((W, P), dtype=vals.dtype)
-    for t in range(vals.shape[0]):
-        v = jax.lax.slice_in_dim(vals, t, t + 1, axis=0)
-        if shifted:
-            i = lx + t - r0
-        else:
-            i = lx - (m - 1) + t - r0
-        w = jnp.where(iota == i, v, w)
-    return w
-
-
-# ---------------------------------------------------------------------------
-# Block-major <-> grid relayout
-# ---------------------------------------------------------------------------
-#
-# The grid layout (CR, N0, N1, ...) and the kernels' block-major layout
-# (CR, nb0, .., B0/p0, ..) differ by the classic block-interleave transpose.
-# Measured on v5e (scripts/exp_bw2.py): a bare XLA transpose runs at
-# 209-239 GB/s while the BlockSpec-pipelined Pallas copy kernels top out at
-# ~110-140 GB/s (the Pallas DMA pipeline reaches ~40% of XLA's streaming
-# rate on this stack), so the relayout is a plain jnp.transpose; the Pallas
-# copy kernels are kept below only for interpret-mode parity testing and as
-# a fallback (`relayout_to_grid_pallas`).
-
-
-def relayout_to_grid(blocks_major: jnp.ndarray, block_dims, *, interpret=False):
+def relayout_to_grid(blocks_major: jnp.ndarray, block_dims) -> jnp.ndarray:
     """(CR, nb0, .., nbD-1, B0, .., BD-1) -> (CR, N0, .., ND-1) via one XLA
     block-interleave transpose."""
     D = len(block_dims)
@@ -420,174 +26,28 @@ def relayout_to_grid(blocks_major: jnp.ndarray, block_dims, *, interpret=False):
     return jnp.transpose(blocks_major, perm).reshape((CR,) + grid_shape)
 
 
-def relayout_to_blocks(grid: jnp.ndarray, block_dims, *, interpret=False):
-    """(CR, N0, .., ND-1) -> (CR, nb0, .., nbD-1, B0, .., BD-1), inverse of
-    :func:`relayout_to_grid`."""
-    D = len(block_dims)
-    CR = grid.shape[0]
-    nb = tuple(n // b for n, b in zip(grid.shape[1:], block_dims))
-    split = (CR,) + tuple(
-        x for nbd, b in zip(nb, block_dims) for x in (nbd, b)
-    )
-    perm = (0,) + tuple(1 + 2 * d for d in range(D)) + tuple(
-        2 + 2 * d for d in range(D)
-    )
-    return jnp.transpose(grid.reshape(split), perm)
-
-
-def relayout_to_grid_pallas(blocks_major: jnp.ndarray, block_dims, *, interpret=False):
-    """(CR, nb0, .., nbD-1, B0, .., BD-1) -> (CR, N0, .., ND-1).
-
-    One Pallas program per (nb0, .., nbD-2) position spans the FULL last
-    block axis (an entire row of nbD-1 blocks concatenated along the lane
-    dim), amortising per-program overhead and giving large pipelined DMAs.
-    Mosaic requires the last two block-spec dims to be (8, 128)-divisible
-    or span the array — guaranteed by choose_geometry / the block_dims
-    validation in PlanNUFFT."""
-    from jax.experimental import pallas as pl
-
-    D = len(block_dims)
-    CR = blocks_major.shape[0]
-    nb = tuple(blocks_major.shape[1 : 1 + D])
-    grid_shape = tuple(n * b for n, b in zip(nb, block_dims))
-    if D == 1:
-        # Block-major == grid layout up to a contiguous merge: free reshape.
-        return blocks_major.reshape((CR,) + grid_shape)
-
-    nlast = nb[-1]
-
-    def kernel(src_ref, dst_ref):
-        pieces = [
-            src_ref[(slice(None),) + (0,) * (D - 1) + (k,)]
-            for k in range(nlast)
-        ]
-        dst_ref[...] = (
-            pieces[0] if nlast == 1 else jnp.concatenate(pieces, axis=-1)
-        )
-
-    def in_index(*bids):
-        return (0,) + tuple(bids) + (0,) * (D + 1)
-
-    def out_index(*bids):
-        return (0,) + tuple(bids) + (0,)
-
-    return pl.pallas_call(
-        kernel,
-        grid=nb[:-1],
-        in_specs=[
-            pl.BlockSpec(
-                (CR,) + (1,) * (D - 1) + (nlast,) + tuple(block_dims), in_index
-            )
-        ],
-        out_specs=pl.BlockSpec(
-            (CR,) + tuple(block_dims[:-1]) + (grid_shape[-1],), out_index
-        ),
-        out_shape=jax.ShapeDtypeStruct((CR,) + grid_shape, blocks_major.dtype),
-        interpret=interpret,
-    )(blocks_major)
-
-
-def relayout_to_blocks_pallas(grid: jnp.ndarray, block_dims, *, interpret=False):
-    """(CR, N0, .., ND-1) -> (CR, nb0, .., nbD-1, B0, .., BD-1).  Same
-    full-last-axis program fattening as relayout_to_grid_pallas."""
-    from jax.experimental import pallas as pl
-
-    D = len(block_dims)
-    CR = grid.shape[0]
-    nb = tuple(n // b for n, b in zip(grid.shape[1:], block_dims))
-    if D == 1:
-        return grid.reshape((CR,) + nb + tuple(block_dims))
-
-    nlast = nb[-1]
-    Blast = block_dims[-1]
-
-    def kernel(src_ref, dst_ref):
-        src = src_ref[...]
-        for k in range(nlast):
-            dst_ref[(slice(None),) + (0,) * (D - 1) + (k,)] = (
-                jax.lax.slice_in_dim(src, k * Blast, (k + 1) * Blast, axis=-1)
-            )
-
-    def in_index(*bids):
-        return (0,) + tuple(bids) + (0,)
-
-    def out_index(*bids):
-        return (0,) + tuple(bids) + (0,) * (D + 1)
-
-    return pl.pallas_call(
-        kernel,
-        grid=nb[:-1],
-        in_specs=[
-            pl.BlockSpec(
-                (CR,) + tuple(block_dims[:-1]) + (grid.shape[-1],), in_index
-            )
-        ],
-        out_specs=pl.BlockSpec(
-            (CR,) + (1,) * (D - 1) + (nlast,) + tuple(block_dims), out_index
-        ),
-        out_shape=jax.ShapeDtypeStruct(
-            (CR,) + nb + tuple(block_dims), grid.dtype
-        ),
-        interpret=interpret,
-    )(grid)
-
-
-# ---------------------------------------------------------------------------
-# jnp-side halo merge / gather (outside the kernels)
-# ---------------------------------------------------------------------------
-
-
-def _shift_blockrows_from_prev(x, nb_ax, shard_axis):
-    """roll(x, +1, nb_ax) across chips: each chip's first block-row receives
-    the previous chip's last block-row (periodic over the mesh ring)."""
-    last = jax.lax.slice_in_dim(x, x.shape[nb_ax] - 1, x.shape[nb_ax], axis=nb_ax)
-    n = jax.lax.axis_size(shard_axis)
-    wrap = jax.lax.ppermute(last, shard_axis, [(i, (i + 1) % n) for i in range(n)])
-    rest = jax.lax.slice_in_dim(x, 0, x.shape[nb_ax] - 1, axis=nb_ax)
-    return jnp.concatenate([wrap, rest], axis=nb_ax)
-
-
-def _shift_blockrows_from_next(x, nb_ax, shard_axis):
-    """roll(x, -1, nb_ax) across chips: each chip's last block-row receives
-    the next chip's first block-row."""
-    first = jax.lax.slice_in_dim(x, 0, 1, axis=nb_ax)
-    n = jax.lax.axis_size(shard_axis)
-    wrap = jax.lax.ppermute(first, shard_axis, [(i, (i - 1) % n) for i in range(n)])
-    rest = jax.lax.slice_in_dim(x, 1, x.shape[nb_ax], axis=nb_ax)
-    return jnp.concatenate([rest, wrap], axis=nb_ax)
-
-
-def overlap_add(
-    blocks: jnp.ndarray, block_dims, padded_dims, m: int, *, interpret=False,
-    shard_axis=None,
-) -> jnp.ndarray:
+def overlap_add(blocks: jnp.ndarray, block_dims, m: int) -> jnp.ndarray:
     """Merge padded per-block accumulators into the periodic grid.
 
-    ``blocks``: (CR, nb0, .., nbD-1, p0, .., pD-1) — the kernel's output in
-    the **core-first** layout (build_wt_matrix): rows [0, B) are the core,
-    [B, B+M) the right halo (goes to the next block's head), [B+M, B+2M-1)
-    the left halo (previous block's tail), the rest alignment zeros.
+    ``blocks``: (CR, nb0, .., nbD-1, p0, .., pD-1) in the **core-first**
+    layout: along each dim, rows [0, B) are the block's core, [B, B+M) the
+    right halo (the next block's head), [B+M, B+2M-1) the left halo (the
+    previous block's tail), and any rows past B+2M-1 are zero padding.
 
-    Decomposition (replaces three full-buffer sequential merge passes,
-    ~3x the traffic of this version — scripts/exp_bw2.py):
+    Decomposition:
 
-    1. core = aligned slice -> one XLA block-interleave transpose (0.45 GB
-       at the bench point, ~209 GB/s);
+    1. core = slice -> one XLA block-interleave transpose;
     2. for each dim d, the halo slab (2M-1 rows, core extents in dims < d,
        padded extents in dims > d) is first self-merged over its trailing
        dims (small arrays), then split into right/left parts, rolled across
-       the block axis (ppermute over ICI when dim 0 is mesh-sharded —
-       reference ghost-cell arithmetic: src/spreading/cpu_blocked.jl:3-36),
-       transposed to a thin interleaved grid and zero-padded to stripe
-       width;
+       the block axis, transposed to a thin interleaved grid and
+       zero-padded to stripe width;
     3. one fused elementwise sum adds core + 2D thin contributions.
 
     Returns (CR, N0~, N1~, ...).
     """
     D = len(block_dims)
     H = 2 * m - 1
-    CR = blocks.shape[0]
-    nb = tuple(blocks.shape[1 : 1 + D])
 
     # Peel: core (all dims [0, B)) and per-dim halo slabs.
     core = blocks
@@ -598,7 +58,7 @@ def overlap_add(
         slabs.append(jax.lax.slice_in_dim(core, B, B + H, axis=p_ax))
         core = jax.lax.slice_in_dim(core, 0, B, axis=p_ax)
 
-    contributions = [relayout_to_grid(core, block_dims, interpret=interpret)]
+    contributions = [relayout_to_grid(core, block_dims)]
     grid_shape = contributions[0].shape
 
     for d in range(D):
@@ -629,20 +89,13 @@ def overlap_add(
         p_ax_d = 1 + D + d
         nb_ax_d = 1 + d
         Bd = block_dims[d]
-        sharded = shard_axis is not None and d == 0
-        right = jax.lax.slice_in_dim(slab, 0, m, axis=p_ax_d)
-        right = (
-            _shift_blockrows_from_prev(right, nb_ax_d, shard_axis)
-            if sharded
-            else jnp.roll(right, 1, axis=nb_ax_d)
+        right = jnp.roll(
+            jax.lax.slice_in_dim(slab, 0, m, axis=p_ax_d), 1, axis=nb_ax_d
         )
         parts = [(right, 0)]
         if m > 1:
-            left = jax.lax.slice_in_dim(slab, m, H, axis=p_ax_d)
-            left = (
-                _shift_blockrows_from_next(left, nb_ax_d, shard_axis)
-                if sharded
-                else jnp.roll(left, -1, axis=nb_ax_d)
+            left = jnp.roll(
+                jax.lax.slice_in_dim(slab, m, H, axis=p_ax_d), -1, axis=nb_ax_d
             )
             parts.append((left, Bd - (m - 1)))
         for part, off in parts:
@@ -654,7 +107,6 @@ def overlap_add(
             for dd in range(D):
                 perm.extend([1 + dd, 1 + D + dd])
             thin = jnp.transpose(part, perm)
-            # shape now (CR, nb0, l0, nb1, l1, ...); pad dim d's width.
             pad_cfg = [(0, 0)] * thin.ndim
             ax_w = 1 + 2 * d + 1
             pad_cfg[ax_w] = (off, Bd - off - width)
@@ -664,53 +116,3 @@ def overlap_add(
     for c in contributions[1:]:
         out = out + c
     return out
-
-
-def halo_gather(
-    grid: jnp.ndarray, block_dims, padded_dims, m: int, *, interpret=False,
-    shard_axis=None,
-) -> jnp.ndarray:
-    """Inverse of overlap_add for interpolation: build the per-block padded
-    (halo-including) view of the periodic grid.
-
-    ``grid``: (CR,) + shape_over.  Returns (CR, nb0, .., nbD-1, p0, .., pD-1)
-    (the kernels' layout), with the alignment-padding columns zero-filled.
-    Grid -> block-major is a Pallas relayout copy; halo assembly then runs
-    on the block-major layout (rolls + concats, no transpose).
-    """
-    D = len(block_dims)
-    arr = relayout_to_blocks(grid, block_dims, interpret=interpret)
-    for d in range(D):
-        nb_ax = 1 + d
-        p_ax = 1 + D + d
-        B = block_dims[d]
-        sharded = shard_axis is not None and d == 0
-        if sharded:
-            prev = _shift_blockrows_from_prev(
-                jax.lax.slice_in_dim(arr, B - (m - 1), B, axis=p_ax),
-                nb_ax, shard_axis,
-            )
-            nxt = _shift_blockrows_from_next(
-                jax.lax.slice_in_dim(arr, 0, m, axis=p_ax), nb_ax, shard_axis
-            )
-            left, right = prev, nxt
-        else:
-            # Slice FIRST, roll the small halo slab (rolling the full array
-            # first would copy the whole buffer twice per dim).
-            left = jnp.roll(
-                jax.lax.slice_in_dim(arr, B - (m - 1), B, axis=p_ax), 1,
-                axis=nb_ax,
-            )
-            right = jnp.roll(
-                jax.lax.slice_in_dim(arr, 0, m, axis=p_ax), -1, axis=nb_ax
-            )
-        # Core-first layout: [core | right halo (next block's head, M) |
-        # left halo (previous block's tail, M-1) | alignment zeros].
-        pieces = [arr, right, left]
-        pad = padded_dims[d] - (B + 2 * m - 1)
-        if pad:
-            zshape = list(arr.shape)
-            zshape[p_ax] = pad
-            pieces.append(jnp.zeros(zshape, dtype=arr.dtype))
-        arr = jnp.concatenate(pieces, axis=p_ax)
-    return arr

@@ -26,22 +26,32 @@ def wrap_indices(idx: jnp.ndarray, n: int) -> jnp.ndarray:
     return jnp.where(idx >= n, idx - n, idx)
 
 
-def window_values_and_starts(
+def stencil_from_cells(
     kernel_data: Sequence[KernelData],
     evalmode: EvaluationMode,
-    points: jnp.ndarray,  # (D, P) folded into [0, 2pi)
-) -> Tuple[Tuple[jnp.ndarray, ...], Tuple[jnp.ndarray, ...]]:
-    """Per-dimension window values ``(P, 2M)`` and start nodes ``c - M + 1``
-    (unwrapped int32, (P,)) for every point."""
-    values, starts = [], []
+    cells: jnp.ndarray,  # (D, P) int32 cell indices in [0, N)
+    fracs: jnp.ndarray,  # (D, P) in-cell fractions in [0, 1)
+) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """Flattened stencil of each point from its cell split.
+
+    Returns ``(lin, w)`` with shapes ``(P, S)`` where ``S = prod(2M_d)``:
+    ``lin`` are linear indices into the flattened (row-major) oversampled grid
+    and ``w`` the tensor-product window weights.
+    """
+    lin = None
+    w = None
     for d, kd in enumerate(kernel_data):
-        # High-accuracy cell decomposition (point_to_cell_split): in f32 the
-        # naive (x/L)*N costs N*2^-24 cells of position noise, which round-2
-        # measured as the accuracy floor of the whole transform.
-        c, X = windows.point_to_cell_split(points[d], kd.n)
-        values.append(windows.eval_window_frac(kd, evalmode, X))
-        starts.append(c - (kd.m - 1))
-    return tuple(values), tuple(starts)
+        two_m = 2 * kd.m
+        vals = windows.eval_window_frac(kd, evalmode, fracs[d])  # (P, 2M)
+        t = jnp.arange(two_m, dtype=jnp.int32)
+        start = cells[d] - (kd.m - 1)
+        idx = wrap_indices(start[:, None] + t[None, :], kd.n)  # (P, 2M)
+        if lin is None:
+            lin, w = idx, vals
+        else:
+            lin = (lin[:, :, None] * kd.n + idx[:, None, :]).reshape(lin.shape[0], -1)
+            w = (w[:, :, None] * vals[:, None, :]).reshape(w.shape[0], -1)
+    return lin, w
 
 
 def linear_stencil(
@@ -49,22 +59,13 @@ def linear_stencil(
     evalmode: EvaluationMode,
     points: jnp.ndarray,  # (D, P)
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Flattened stencil for each point.
+    """Flattened stencil for each point (see :func:`stencil_from_cells`).
 
-    Returns ``(lin, w)`` with shapes ``(P, S)`` where ``S = prod(2M_d)``:
-    ``lin`` are linear indices into the flattened (row-major) oversampled grid
-    and ``w`` the tensor-product window weights.
-    """
-    values, starts = window_values_and_starts(kernel_data, evalmode, points)
-    lin = None
-    w = None
-    for d, kd in enumerate(kernel_data):
-        two_m = 2 * kd.m
-        t = jnp.arange(two_m, dtype=jnp.int32)
-        idx = wrap_indices(starts[d][:, None] + t[None, :], kd.n)  # (P, 2M)
-        if lin is None:
-            lin, w = idx, values[d]
-        else:
-            lin = (lin[:, :, None] * kd.n + idx[:, None, :]).reshape(lin.shape[0], -1)
-            w = (w[:, :, None] * values[d][:, None, :]).reshape(w.shape[0], -1)
-    return lin, w
+    The cell split is the high-accuracy one (point_to_cell_split): in f32
+    the naive ``(x/L)*N`` costs N*2^-24 cells of position noise, the
+    accuracy floor of the whole transform."""
+    cs, xs = zip(
+        *(windows.point_to_cell_split(points[d], kd.n)
+          for d, kd in enumerate(kernel_data))
+    )
+    return stencil_from_cells(kernel_data, evalmode, jnp.stack(cs), jnp.stack(xs))

@@ -137,10 +137,6 @@ class KernelData:
     peak: float = static_field(default=1.0)
     cs_poly: Optional[jnp.ndarray] = data_field(default=None)  # (Npoly, 2M)
     cs_gauss: Optional[jnp.ndarray] = data_field(default=None)  # (2M,)
-    # Double-single residual coefficients (f32): cs_poly_lo = cs64 - f32(cs64)
-    # — present only on extended-precision ('double' + 64-bit dtype) plans,
-    # whose in-kernel Horner evaluates (hi, lo) coefficient pairs (ds.py).
-    cs_poly_lo: Optional[jnp.ndarray] = data_field(default=None)
 
 
 # ---------------------------------------------------------------------------
@@ -199,25 +195,15 @@ def _solve_piecewise_polynomial_coefficients(f, m: int, npoly: int) -> np.ndarra
 
 def make_kernel_data(
     kernel: AbstractKernel, m: int, n: int, sigma: float, dtype,
-    *, ds: bool = False,
 ) -> KernelData:
-    """Build per-dimension kernel data (reference: Kernels.optimal_kernel).
-
-    ``ds=True`` (extended-precision plans) additionally stores the f32
-    double-single residual of the float64 coefficient solve (cs_poly_lo),
-    with cs_poly itself forced to f32 — the pair is what the ds Horner
-    consumes on TPU, where f64 device arrays do not exist."""
+    """Build per-dimension kernel data (reference: Kernels.optimal_kernel)."""
     dx = TWO_PI / n
     w = m * dx
     npoly = m + 4  # polynomial degree npoly - 1 (kaiser_bessel.jl:128)
-    real_dtype = jnp.dtype(np.float32) if ds else jnp.dtype(dtype)
+    real_dtype = jnp.dtype(dtype)
 
     def _poly_fields(cs64: np.ndarray):
-        if not ds:
-            return dict(cs_poly=jnp.asarray(cs64, dtype=real_dtype))
-        hi = cs64.astype(np.float32)
-        lo = (cs64 - hi.astype(np.float64)).astype(np.float32)
-        return dict(cs_poly=jnp.asarray(hi), cs_poly_lo=jnp.asarray(lo))
+        return dict(cs_poly=jnp.asarray(cs64, dtype=real_dtype))
 
     if isinstance(kernel, KaiserBesselKernel):
         beta = kernel.beta if kernel.beta is not None else _optimal_beta_kb(m, sigma)
@@ -294,8 +280,8 @@ def point_to_cell_split(x: jnp.ndarray, n: int):
     fraction of ``r = x * N / 2pi`` (folding is the mod-N on ``r``).
 
     In f32 the naive ``(x/L)*N`` carries an *absolute* error of
-    ``N * 2^-24`` cells (2.3e-5 at N=384), which round-2 profiling measured
-    as the accuracy floor of the whole transform.  Here the product is
+    ``N * 2^-24`` cells (2.3e-5 at N=384), which bounds the accuracy of
+    the whole float32 transform.  Here the product is
     evaluated in double-single arithmetic (Veltkamp-split operands, exact
     high product), reducing the fraction error to ~2^-24 of one cell; f64
     inputs take the plain path (already exact enough).
@@ -333,50 +319,6 @@ def point_to_cell_split(x: jnp.ndarray, n: int):
     i = i_main.astype(jnp.int32) + extra.astype(jnp.int32)
     c = jnp.mod(i, n)
     return c, X.astype(x.dtype)
-
-
-def point_to_cell_split_ds(xh: jnp.ndarray, xl: jnp.ndarray, n: int):
-    """Double-single cell decomposition: map ds coordinates ``(xh, xl)``
-    (f32 pair representing an f64 point) to ``(c, Xh, Xl)`` with ``c`` the
-    0-based cell in ``[0, N)`` and ``(Xh, Xl)`` the ds in-cell fraction of
-    ``r = x * N / 2pi`` — the extended-precision twin of
-    :func:`point_to_cell_split`.
-
-    The f32 split path caps the fraction accuracy at ~2^-24 of a cell,
-    which alone floors the transform near 1e-7; the high-accuracy pipeline
-    needs the coordinate phase to ~2^-45, so every product here is exact
-    (TwoProd) and the constant ``k = N / 2pi`` carries a second f32 limb.
-    Accuracy: |X_ds - X_exact| ~ 2^-46 of a cell for |x| <= ~1e3.
-    """
-    from .ds import fast_two_sum, two_prod, two_sum
-
-    k = np.float64(n) / np.float64(TWO_PI)
-    k1 = np.float32(k)
-    k2 = np.float32(k - np.float64(k1))
-    p1, e1 = two_prod(xh, jnp.float32(k1))
-    p2, e2 = two_prod(xl, jnp.float32(k1))
-    p3, e3 = two_prod(xh, jnp.float32(k2))
-    t4 = xl * jnp.float32(k2)  # ~2^-48: single precision suffices
-    s, err = two_sum(p1, p2)
-    s, err2 = two_sum(s, p3)
-    lo = err + err2 + e1 + e2 + e3 + t4
-    i_main = jnp.floor(s)
-    # s - floor(s) is NOT generally exact in f32 (s = -0.3 -> s + 1 needs
-    # 26 bits); capture the subtraction rounding with TwoSum and carry it.
-    f_main, fe = two_sum(s, -i_main)
-    t, te = two_sum(f_main, lo)
-    te = te + fe
-    extra = jnp.floor(t)
-    fh0, fe2 = two_sum(t, -extra)
-    Xh, Xl = fast_two_sum(fh0, te + fe2)
-    # The renormalised pair can land a hair outside [0, 1): push the whole
-    # unit back into the cell index (branchless; matches the f32 path's
-    # clamp semantics at boundaries).
-    over = jnp.floor(Xh)
-    Xh = Xh - over
-    i = i_main.astype(jnp.int32) + extra.astype(jnp.int32) + over.astype(jnp.int32)
-    c = jnp.mod(i, n)
-    return c, Xh, Xl
 
 
 # ---------------------------------------------------------------------------

@@ -1,27 +1,23 @@
-"""Multi-chip NUFFT execution over a JAX device mesh.
+"""Point-parallel multi-device NUFFT execution over a JAX device mesh.
 
 The reference is a single-process, single-device library (SURVEY.md section
-2: no distributed communication backend exists there) — this module is the
-TPU-native *extension*: scale over chips with ``jax.sharding.Mesh`` +
-``shard_map``, letting XLA place the collectives on ICI.
-
-Parallelisation strategy (v1, point-parallel):
+2: no distributed communication backend exists there) — this module is an
+*extension*: scale over devices with ``jax.sharding.Mesh`` + ``shard_map``,
+letting XLA place the collectives (NCCL on GPUs).
 
 - non-uniform points and their values are sharded over the ``points`` mesh
   axis (the NUFFT analogue of data parallelism: points are the "batch");
 - type 1: each device spreads its local points onto a full local oversampled
-  grid — an *atomic-free partial sum* by construction — then one ``psum``
-  over ICI merges the grids, and the FFT + deconvolution run on the (now
-  replicated) grid.  This mirrors how the reference's CPU path resolves
-  write conflicts (block-local accumulation + merge,
-  src/spreading/cpu_blocked.jl) lifted to the chip level;
+  grid — a partial sum free of cross-device races by construction — then
+  one ``psum`` merges the grids, and the FFT + deconvolution run on the
+  (now replicated) grid.  This mirrors how the reference's CPU path
+  resolves write conflicts (block-local accumulation + merge,
+  src/spreading/cpu_blocked.jl) lifted to the device level;
 - type 2: the deconvolved oversampled grid is computed replicated; each
   device then gathers only its local points — zero communication.
 
-A spatially-sharded variant (grid split over chips + (2M-1)-wide halo
-exchange via ``ppermute``) is the natural next step for grids too large for
-one chip; the block/halo arithmetic needed is exactly the padded-block logic
-of ops/pallas/common.py.
+parallel/spatial.py is the grid-sharded counterpart, for grids too large
+for one device.
 """
 
 from __future__ import annotations
@@ -85,10 +81,13 @@ def exec_type1_sharded(plan: Plan, points, vp_ch, *, mesh: Mesh, axis_name: str 
 
     def body(plan_l, pts_l, vp_l):
         g = _local_spread_ch(plan_l, pts_l, vp_l)
-        return jax.lax.psum(g, axis_name)  # merge partial grids over ICI
+        return jax.lax.psum(g, axis_name)  # merge the partial grids
 
+    # check_vma=False: the chunked stencil scan carries a grid that starts
+    # replicated (zeros) and becomes device-varying in its first step.
     grid = jax.shard_map(
         body, mesh=mesh, in_specs=(P(), pspec, vspec), out_specs=P(),
+        check_vma=False,
     )(plan, points, vp_ch)
 
     # FFT + deconvolution on the merged grid (replicated).
@@ -128,5 +127,5 @@ def exec_type2_sharded(plan: Plan, points, uhat_ch, *, mesh: Mesh, axis_name: st
 
     out_spec = P(None, axis_name) if plan.is_real else P(None, None, axis_name)
     return jax.shard_map(
-        body, mesh=mesh, in_specs=(P(), P(), pspec), out_specs=out_spec
+        body, mesh=mesh, in_specs=(P(), P(), pspec), out_specs=out_spec,
     )(plan, grid, points)

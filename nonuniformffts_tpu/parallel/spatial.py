@@ -1,40 +1,34 @@
-"""Spatially-sharded multi-chip NUFFT: oversampled grid split over chips.
+"""Grid-sharded multi-device NUFFT: the oversampled grid split into slabs.
 
 The reference is single-device (SURVEY.md section 2: no distributed layer
-exists there); this module is the TPU-native scaling extension for grids
-too large for one chip — per-chip memory is O(grid / n_chips):
+exists there); this module scales one transform over the devices of a 1-D
+mesh so that per-device grid memory is O(grid / n_devices):
 
-- the OVERSAMPLED grid is sharded along dim 0 at *block-row* granularity:
-  chip r owns block rows [r*nb0/n, (r+1)*nb0/n), i.e. grid planes
-  [r*N0~/n, (r+1)*N0~/n);
-- non-uniform points arrive sharded along Np in arbitrary order; set_points
-  routes each point to its owner chip with one capacity-bounded
-  ``all_to_all`` (bin by destination slab -> sort -> pad each (src, dst)
-  lane to a static capacity; overflow is detected and reported, never
-  silently dropped);
-- spreading/interpolation run the SAME blocked Pallas kernels per chip over
-  the local block rows (the ``block_offset`` scalar-prefetch keeps cell
-  arithmetic global), and the dim-0 boundary halos travel by ``ppermute``
-  over ICI — the chip-level version of the reference's ghost-cell merge
-  (src/spreading/cpu_blocked.jl:3-36, src/gpu_common.jl:51-53);
-- the DFT is distributed: dims 1..D-1 transform locally (MXU matmul-DFT),
-  then one tiled ``all_to_all`` transposes the sharding from dim 0 to
-  dim 1 and the dim-0 DFT runs locally.  Truncation/padding and the
-  deconvolution factors are applied along the way (dim-1 factors sliced
-  per chip).
+- the OVERSAMPLED grid is sharded along dim 0: device r owns the planes
+  [r*L, (r+1)*L) with L = N0~/n;
+- non-uniform points arrive sharded along Np in arbitrary order;
+  ``set_points`` routes each point to its owner device with one
+  capacity-bounded ``all_to_all`` (bin by destination slab -> sort -> pad
+  each (src, dst) lane to a static capacity; overflow is detected and
+  reported, never silently dropped);
+- spreading scatters into the device's slab extended by the 2M-1 halo
+  planes; the halos travel to the neighbouring slabs by ``ppermute`` — the
+  device-level version of the reference's ghost-cell merge
+  (src/spreading/cpu_blocked.jl:3-36); interpolation receives its halo
+  planes the same way;
+- the FFT is distributed: dims 1..D-1 transform locally, one tiled
+  ``all_to_all`` moves the sharding from dim 0 to dim 1, and the dim-0 FFT
+  runs locally.  Truncation/padding and the deconvolution factors are
+  applied along the way (dim-1 factors sliced per device).
 
-Everything runs inside one ``shard_map`` over a 1-D mesh; XLA places the
-collectives (all_to_all, ppermute, all_gather) on ICI.
+Everything runs inside one ``shard_map`` over the mesh; XLA hands the
+collectives to NCCL on GPUs.
 
-Spectrum layout: with ``spectrum='replicated'`` (default) every chip holds
-the full (C, 2) + spectral_shape array — per-chip memory for the *spectrum*
-is O(N^D), though the (~sigma^D x larger) oversampled grid is always
-sharded.  ``spectrum='sharded'`` keeps the spectrum sharded too — along its
-dim 0 (blockform engine: a ring reduce-scatter replaces the type-1 psum and
-a ring gather-accumulate feeds the type-2 backward factors) or its dim 1
-(split engine: the transform is dim-1-sharded there anyway; the final
-all_gather / initial slice simply disappear) — so per-chip memory is
-O(N^D / n_chips) end to end.  See ``spectrum_shard_dim``.
+Spectrum layout: with ``spectrum='replicated'`` (default) every device
+holds the full (C, 2) + spectral_shape array.  ``spectrum='sharded'``
+keeps it sharded along spectral dim 1, the layout the distributed FFT
+produces anyway, so the final all_gather (type 1) and the initial slice
+(type 2) disappear and per-device memory is O(N^D / n) end to end.
 """
 
 from __future__ import annotations
@@ -42,56 +36,45 @@ from __future__ import annotations
 import dataclasses
 import math
 from functools import partial
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..blocking import gather_slots, num_blocks, slot_layout
-from ..ops import matmul_fft, windows
+from ..blocking import cells_and_fracs
 from ..ops.deconvolve import pad_axis, truncate_axis
-from ..ops.pallas import blocked
-from ..plan import Plan, PlanNUFFT, fold_points, _canonicalise_points
+from ..ops.interpolation import interpolate_cells
+from ..ops.spreading import spread_cells
+from ..plan import PlanNUFFT, _canonicalise_points, _identity
 from ..utils.pytree import data_field, register_pytree_dataclass, static_field
 
 
 @register_pytree_dataclass
 class SpatialPoints:
-    """Routed point state, one leading mesh axis (chip) on every leaf."""
+    """Routed point state, one leading mesh axis (device) on every leaf."""
 
     send_idx: jnp.ndarray = data_field(default=None)  # (n, S) local pt idx
     send_valid: jnp.ndarray = data_field(default=None)  # (n, S) bool
     send_pos: jnp.ndarray = data_field(default=None)  # (n, Npl) slot in send buf
     recv_valid: jnp.ndarray = data_field(default=None)  # (n, S) bool
-    point_slots: jnp.ndarray = data_field(default=None)  # (n, S) recv->slot
-    pts_slotted: jnp.ndarray = data_field(default=None)  # (n, DP, nslots)
-    slot_to_point: jnp.ndarray = data_field(default=None)  # (n, nslots)
-    slot_valid: jnp.ndarray = data_field(default=None)  # (n, nslots)
-    batch_starts: jnp.ndarray = data_field(default=None)  # (n, nb_l+2)
-    batch_r0: jnp.ndarray = data_field(default=None)  # (n, nbatches) | None
-    batch_r1: jnp.ndarray = data_field(default=None)  # (n, nbatches) | None
+    cells: jnp.ndarray = data_field(default=None)  # (n, D, S) slab-local cells
+    fracs: jnp.ndarray = data_field(default=None)  # (n, D, S)
     num_points: int = static_field(default=0)  # global Np
-
-
-def _dft_axis(xr, xi, ax_dft, axis, sign, prec):
-    xr = jnp.moveaxis(xr, axis, -1)
-    xi = jnp.moveaxis(xi, axis, -1)
-    xr, xi = matmul_fft._c2c_last(xr, xi, ax_dft, sign, prec)
-    return jnp.moveaxis(xr, -1, axis), jnp.moveaxis(xi, -1, axis)
 
 
 class SpatialNUFFT:
     """Grid-sharded NUFFT over a 1-D device mesh.
 
-    Channel-form API (TPU-safe transfers): values/spectra are real arrays
-    with a (C, 2, ...) layout for complex dtypes, (C, ...) for real ones.
+    Channel-form API: values/spectra are real arrays with a (C, 2, ...)
+    layout for complex dtypes, (C, ...) for real ones.
 
     Parameters mirror :func:`PlanNUFFT`; additionally ``mesh`` (a 1-D
-    ``jax.sharding.Mesh``) and ``capacity_factor`` (routing slack: each
-    (src chip -> dst chip) lane holds up to ``capacity_factor * Np_local/n``
-    points; heavier skew raises a ValueError at set_points).
+    ``jax.sharding.Mesh``), ``capacity_factor`` (routing slack: each
+    (src device -> dst device) lane holds up to ``capacity_factor *
+    Np_local/n`` points; heavier skew raises a ValueError at set_points)
+    and ``spectrum`` ('replicated' or 'sharded', see the module notes).
     """
 
     def __init__(
@@ -102,7 +85,6 @@ class SpatialNUFFT:
         mesh: Mesh,
         axis_name: Optional[str] = None,
         capacity_factor: float = 4.0,
-        engine: str = "auto",
         spectrum: str = "replicated",
         **plan_kw,
     ):
@@ -115,149 +97,31 @@ class SpatialNUFFT:
         self.n = mesh.shape[self.axis_name]
         self.capacity_factor = float(capacity_factor)
         self.spectrum = spectrum
-
-        plan_kw.setdefault("spread_method", "blocked")
-        plan_kw.setdefault("fft_method", "matmul")
-        if engine not in ("auto", "blockform", "split"):
-            raise ValueError(f"unknown SpatialNUFFT engine {engine!r}")
-        # Engine selection (round-1 VERDICT weak #5: local plans must not
-        # drop the fast single-chip engines):
-        #
-        # - 'blockform' (preferred): the z-form kernels + blockform DFT.
-        #   The axis-0 blockform contraction DISTRIBUTES: each chip owns its
-        #   padded block rows and the factor matrix already encodes the
-        #   periodic wrap, so type-1 is local-contract + one psum and type-2
-        #   is collective-free after the replicated spectrum — no ppermute
-        #   halo exchange at all.
-        # - 'split': per-axis split factors with truncation interleaved
-        #   between collective all_to_all transposes (the fallback when the
-        #   z-form is unavailable: precision='double', fft_variant='split',
-        #   or grids past the pruned-factor size cutoff).
-        base = None
-        if engine in ("auto", "blockform"):
-            kw_b = dict(plan_kw)
-            kw_b.setdefault("fft_variant", "pruned")
-            cand = PlanNUFFT(dtype, shape, **kw_b)
-            if cand.kernel_form == "z" and cand.fft_axes_block:
-                engine, base, plan_kw = "blockform", cand, kw_b
-            elif engine == "blockform":
-                raise ValueError(
-                    "engine='blockform' needs the z-form kernels (blocked "
-                    "spread, matmul FFT with the pruned variant, D >= 2, "
-                    f"precision != 'double'); got kernel_form="
-                    f"{cand.kernel_form!r}"
-                )
-            else:
-                engine = "split"
-        if engine == "split":
-            # The split-form distributed FFT interleaves truncation/padding
-            # with the collective transposes; the pruned variant bakes
-            # truncation into the matrices and does not decompose that way.
-            if plan_kw.setdefault("fft_variant", "split") != "split":
-                raise ValueError(
-                    "SpatialNUFFT engine='split' requires fft_variant="
-                    "'split': the distributed DFT interleaves truncation/"
-                    "padding with the collective transposes (got "
-                    f"fft_variant={plan_kw['fft_variant']!r})"
-                )
-            base = PlanNUFFT(dtype, shape, **plan_kw)
-        self.engine = engine
+        plan_kw["spread_method"] = "reference"
+        base = PlanNUFFT(dtype, shape, **plan_kw)
         if base.ndim < 2:
             raise ValueError("spatial sharding needs >= 2 dimensions")
-        if engine == "split" and base.fft_method != "matmul":
-            # The distributed FFT is built from the matmul-DFT primitives.
-            plan_kw["fft_method"] = "matmul"
-            base = PlanNUFFT(dtype, shape, **plan_kw)
-
-        # Dim-0 block count and the transposed dims must split evenly.
         n = self.n
-        nb = num_blocks(base.shape_over, base.block_dims)
-        if nb[0] % n != 0:
-            b0 = self._fix_b0(base.shape_over[0], base.m, n)
-            plan_kw["block_dims"] = (b0,) + base.block_dims[1:]
-            base = PlanNUFFT(dtype, shape, **plan_kw)
-            nb = num_blocks(base.shape_over, base.block_dims)
-        if engine == "split" and (base.shape_over[1] % n or base.shape[1] % n):
-            # Only the split engine transposes the sharding onto dim 1; the
-            # blockform engine never shards dim 1.
+        if base.shape_over[0] % n or base.shape_over[0] // n < base.m:
             raise ValueError(
-                f"dim-1 sizes ({base.shape[1]}, oversampled "
-                f"{base.shape_over[1]}) must divide by the mesh size {n}"
+                f"oversampled dim-0 size {base.shape_over[0]} must split into "
+                f"{n} slabs of at least M={base.m} planes"
+            )
+        if base.spectral_shape[1] % n:
+            raise ValueError(
+                f"spectral dim-1 size {base.spectral_shape[1]} must divide by "
+                f"the mesh size {n}"
             )
         self.base = base
-        self.nb0_local = nb[0] // n
-        self.nblocks_local = self.nb0_local * int(np.prod(nb[1:]))
-        self.local_shape_over = (
-            base.shape_over[0] // n,
-        ) + base.shape_over[1:]
-        if spectrum == "sharded":
-            d = self.spectrum_shard_dim
-            if base.spectral_shape[d] % n:
-                raise ValueError(
-                    f"spectrum='sharded' needs spectral dim {d} "
-                    f"({base.spectral_shape[d]}) divisible by the mesh size "
-                    f"{n}"
-                )
+        self.slab = base.shape_over[0] // n
 
-    @property
-    def spectrum_shard_dim(self) -> int:
-        """Spectral dimension the ``spectrum='sharded'`` layout splits:
-        dim 0 for the blockform engine (the ring reduce-scatter chunks the
-        axis-0 factor's mode columns), dim 1 for the split engine (whose
-        distributed DFT is dim-1-sharded after the collective transpose)."""
-        return 0 if self.engine == "blockform" else 1
-
-    @staticmethod
-    def _fix_b0(n0_over: int, m: int, n: int) -> int:
-        cands = [
-            b for b in range(max(m, 1), n0_over + 1)
-            if n0_over % b == 0 and (n0_over // b) % n == 0
-        ]
-        if not cands:
-            raise ValueError(
-                f"cannot split {n0_over} grid planes into block rows "
-                f"divisible by {n} chips"
-            )
-        return min(cands, key=lambda b: abs(b - 16))
-
-    # -- local plan view ----------------------------------------------------
-    def _local_plan(self, st: SpatialPoints) -> Plan:
-        return dataclasses.replace(
-            self.base,
-            shape_over=self.local_shape_over,
-            # Routed points carry invalid (capacity-padding) lanes, which
-            # the slot layout parks in virtual bins — the packed layout has
-            # no parking, so local views pin layout='slots'.
-            layout="slots",
-            points_packed=None,
-            pstarts=None,
-            sort_perm=None,
-            points_slotted=st.pts_slotted,
-            slot_to_point=st.slot_to_point,
-            slot_valid=st.slot_valid,
-            point_slots=st.point_slots,
-            block_starts=st.batch_starts,
-            # Windowed kernels: the routed layout sub-sorts by the dim-0
-            # cell when window_rows is active (round-1 weak #5 fixed).
-            batch_r0=(
-                st.batch_r0 if self.base.window_rows is not None else None
-            ),
-            batch_r1=(
-                st.batch_r1 if self.base.window_rows_y is not None else None
-            ),
-            num_points_static=int(st.slot_to_point.shape[0]),
-            # shape_over above is the local slab; keep the GLOBAL FFT
-            # normalisation (the slab view would inflate it by n).
-            normfactor_override=self.base.normfactor,
-        )
-
+    # -- set_points -----------------------------------------------------------
     def _capacity(self, np_local: int) -> int:
         cap = int(math.ceil(self.capacity_factor * np_local / self.n))
         return max(-(-cap // 8) * 8, 8)
 
-    # -- set_points -----------------------------------------------------------
     def set_points(self, points) -> SpatialPoints:
-        """Route points to their owner chips and build per-chip slot layouts.
+        """Route points to their owner devices.
 
         ``points``: any format :func:`set_points` accepts; the Np axis must
         divide evenly by the mesh size (shard it beforehand or let this
@@ -269,51 +133,31 @@ class SpatialNUFFT:
             raise ValueError(
                 f"number of points {np_total} must divide by mesh size {self.n}"
             )
-        np_local = np_total // self.n
-        cap = self._capacity(np_local)
+        cap = self._capacity(np_total // self.n)
         ax = self.axis_name
-        base = self.base
 
         @partial(
             jax.shard_map,
             mesh=self.mesh,
-            check_vma=False,
             in_specs=(P(), P(None, ax)),
-            out_specs=(
-                P(ax), P(ax), P(ax), P(ax), P(ax), P(ax), P(ax), P(ax),
-                P(ax), P(ax), P(ax), P(ax),
-            ),
+            out_specs=(P(ax),) * 7,
         )
         def body(plan, pts_l):
-            out = _route_and_sort(
-                plan, pts_l, self.n, cap, self.nb0_local,
-                self.nblocks_local, ax,
-            )
+            out = _route(plan, pts_l, self.n, cap, self.slab, ax)
             return tuple(x[None] for x in out)
 
-        (send_idx, send_valid, send_pos, recv_valid, pslots, pts_slotted,
-         s2p, svalid, bstarts, batch_r0, batch_r1, overflow) = jax.jit(body)(
-            base, pts
-        )
+        (send_idx, send_valid, send_pos, recv_valid, cells, fracs,
+         overflow) = jax.jit(body)(self.base, pts)
         if bool(jnp.any(overflow)):
             raise ValueError(
-                "point routing overflow: a (src, dst) chip lane exceeded its "
+                "point routing overflow: a (src, dst) device lane exceeded its "
                 f"capacity ({cap} points). The point distribution is too "
                 "skewed for capacity_factor="
                 f"{self.capacity_factor}; increase it."
             )
         return SpatialPoints(
-            send_idx=send_idx,
-            send_valid=send_valid,
-            send_pos=send_pos,
-            recv_valid=recv_valid,
-            point_slots=pslots,
-            pts_slotted=pts_slotted,
-            slot_to_point=s2p,
-            slot_valid=svalid,
-            batch_starts=bstarts,
-            batch_r0=batch_r0,
-            batch_r1=batch_r1,
+            send_idx=send_idx, send_valid=send_valid, send_pos=send_pos,
+            recv_valid=recv_valid, cells=cells, fracs=fracs,
             num_points=np_total,
         )
 
@@ -323,15 +167,21 @@ class SpatialNUFFT:
         under the configured layout."""
         if self.spectrum == "replicated":
             return P()
-        specs = [None, None] + [None] * self.base.ndim
-        specs[2 + self.spectrum_shard_dim] = self.axis_name
-        return P(*specs)
+        return P(None, None, None, self.axis_name)
+
+    def _state_specs(self, num_points):
+        ax = self.axis_name
+        return SpatialPoints(
+            send_idx=P(ax), send_valid=P(ax), send_pos=P(ax),
+            recv_valid=P(ax), cells=P(ax), fracs=P(ax),
+            num_points=num_points,
+        )
 
     def exec_type1(self, state: SpatialPoints, v_ch) -> jnp.ndarray:
         """Distributed type 1.  ``v_ch``: (C, 2, Np) channel values (complex
         plans) or (C, Np) (real plans).  Returns the channel-form spectrum
-        (C, 2) + spectral_shape — replicated, or sharded along
-        ``spectrum_shard_dim`` when ``spectrum='sharded'``."""
+        (C, 2) + spectral_shape — replicated, or sharded along spectral dim
+        1 when ``spectrum='sharded'``."""
         base = self.base
         ax = self.axis_name
         v_ch = jnp.asarray(v_ch, base.real_dtype)
@@ -341,7 +191,7 @@ class SpatialNUFFT:
             jax.shard_map,
             mesh=self.mesh,
             check_vma=False,
-            in_specs=(P(), _state_specs(ax, state.num_points), vspec),
+            in_specs=(P(), self._state_specs(state.num_points), vspec),
             out_specs=self._spectrum_pspec(),
         )
         def body(plan, st, v_l):
@@ -351,90 +201,51 @@ class SpatialNUFFT:
 
     def exec_type2(self, state: SpatialPoints, uhat_ch) -> jnp.ndarray:
         """Distributed type 2.  ``uhat_ch``: channel-form spectrum (C, 2) +
-        spectral_shape, in the plan's spectrum layout (replicated, or sharded
-        along ``spectrum_shard_dim``).  Returns (C, 2, Np) / (C, Np) channel
-        values in the caller's original point order."""
+        spectral_shape in the configured layout.  Returns (C, 2, Np) / (C,
+        Np) channel values in the caller's original point order."""
         base = self.base
         ax = self.axis_name
         uhat_ch = jnp.asarray(uhat_ch, base.real_dtype)
-        out_spec = (
-            P(None, None, ax) if not base.is_real else P(None, ax)
-        )
+        out_spec = P(None, ax) if base.is_real else P(None, None, ax)
 
         @partial(
             jax.shard_map,
             mesh=self.mesh,
-            check_vma=False,
             in_specs=(
-                P(), _state_specs(ax, state.num_points),
+                P(), self._state_specs(state.num_points),
                 self._spectrum_pspec(),
             ),
             out_specs=out_spec,
         )
-        def body(plan, st, u_full):
-            return _exec_type2_body(self, plan, _unlead(st), u_full)
+        def body(plan, st, u):
+            return _exec_type2_body(self, plan, _unlead(st), u)
 
         return jax.jit(body)(base, state, uhat_ch)
 
     def collective_bytes(self) -> dict:
-        """Estimated per-step ICI collective traffic (bytes a chip sends),
-        by stage — the back-of-envelope cost model for the engine choice,
-        recorded next to MULTICHIP_BENCH.json.  Spectrum terms scale with
-        the layout: a psum of X bytes moves ~2X(n-1)/n per chip
-        (reduce-scatter + all-gather); 'sharded' halves that on type 1
-        (reduce-scatter only) and replaces type-2's implicit broadcast with
-        a ring gather of (n-1)/n X."""
+        """Estimated bytes one device sends per transform, by collective:
+        the halo planes, the all_to_all transpose of the (dims >= 1
+        truncated) grid and, for the replicated layout, the spectrum
+        gather."""
         base = self.base
         n = self.n
-        fs = np.dtype(base.real_dtype).itemsize
+        isz = np.dtype(base.complex_dtype).itemsize
         C = base.ntransforms
-        cr = C if base.is_real else 2 * C
-        spec_bytes = cr * int(np.prod(base.spectral_shape)) * fs
-        out = {"engine": self.engine, "spectrum": self.spectrum, "n": n}
-        if self.engine == "blockform":
-            if self.spectrum == "replicated":
-                out["t1_spectrum_psum"] = int(2 * spec_bytes * (n - 1) / n)
-                out["t2_spectrum"] = 0  # replicated input, no collective
-            else:
-                out["t1_spectrum_reduce_scatter"] = int(
-                    spec_bytes * (n - 1) / n
-                )
-                out["t2_spectrum_ring_gather"] = int(
-                    spec_bytes * (n - 1) / n
-                )
-        else:
-            grid_bytes = cr * int(np.prod(base.shape_over)) * fs
-            # all_to_all transposes move ~(n-1)/n of the (truncated) grid.
-            out["t1_transpose_all_to_all"] = int(
-                grid_bytes / base.sigma ** (base.ndim - 1) * (n - 1) / n
-            )
-            out["t2_transpose_all_to_all"] = out["t1_transpose_all_to_all"]
-            out["t1_spectrum_all_gather"] = (
-                0 if self.spectrum == "sharded"
-                else int(spec_bytes * (n - 1) / n)
-            )
+        plane = int(np.prod(base.shape_over[1:]))
+        spec = int(np.prod(base.spectral_shape))
+        transposed = base.shape_over[0] * int(np.prod(base.spectral_shape[1:]))
+        out = {"spectrum": self.spectrum, "n": n}
+        out["halo_ppermute"] = C * (2 * base.m - 1) * plane * isz
+        out["transpose_all_to_all"] = int(C * transposed * isz * (n - 1) / n / n)
+        out["spectrum_all_gather"] = (
+            0 if self.spectrum == "sharded"
+            else int(C * spec * isz * (n - 1) / n)
+        )
         return out
 
 
-def _state_specs(ax, num_points=0):
-    return SpatialPoints(
-        send_idx=P(ax),
-        send_valid=P(ax),
-        send_pos=P(ax),
-        recv_valid=P(ax),
-        point_slots=P(ax),
-        pts_slotted=P(ax),
-        slot_to_point=P(ax),
-        slot_valid=P(ax),
-        batch_starts=P(ax),
-        batch_r0=P(ax),
-        batch_r1=P(ax),
-        num_points=num_points,
-    )
-
-
 def _unlead(st: SpatialPoints):
-    """Strip the leading per-chip axis (size 1 inside shard_map)."""
+    """Strip the leading per-device axis (size 1 inside shard_map)."""
     return jax.tree.map(lambda a: a[0], st)
 
 
@@ -443,25 +254,14 @@ def _unlead(st: SpatialPoints):
 # ---------------------------------------------------------------------------
 
 
-def _route_and_sort(plan: Plan, pts_l, n, cap, nb0_local, nblocks_local, ax):
-    """Per-chip: bin local points by destination slab, pad-and-exchange,
-    build the local slot layout over the received buffer."""
+def _route(plan, pts_l, n, cap, slab, ax):
+    """Per device: bin local points by destination slab, pad each (src,
+    dst) lane to ``cap``, exchange the cell split with one all_to_all."""
     D, npl = pts_l.shape
-    # Transform (no fold) + high-accuracy cell split; route the (cells,
-    # fracs) representation so the owner chip never recomputes it.
-    from ..plan import _identity
-
     if plan.point_transform is not _identity:
         pts_l = plan.point_transform(pts_l)
-    from ..blocking import block_ids_from_cells, cells_and_fracs
-
     cells, fracs = cells_and_fracs(plan.kernel_data, pts_l)
-    comb = jnp.concatenate(
-        [cells.astype(plan.real_dtype), fracs], axis=0
-    )  # (2D, Npl)
-
-    dest = (cells[0] // plan.block_dims[0]) // nb0_local
-    dest = jnp.clip(dest, 0, n - 1).astype(jnp.int32)
+    dest = jnp.clip(cells[0] // slab, 0, n - 1).astype(jnp.int32)
 
     iota = jnp.arange(npl, dtype=jnp.int32)
     sdest, perm = jax.lax.sort_key_val(dest, iota)
@@ -474,82 +274,34 @@ def _route_and_sort(plan: Plan, pts_l, n, cap, nb0_local, nblocks_local, ax):
     S = n * cap
     slot = jnp.arange(S, dtype=jnp.int32)
     d_of = slot // cap
-    r = slot % cap
-    sidx = jnp.take(dstarts, d_of) + r
+    sidx = jnp.take(dstarts, d_of) + slot % cap
     send_valid = sidx < jnp.take(dstarts, d_of + 1)
-    sidx = jnp.clip(sidx, 0, max(npl - 1, 0))
-    send_idx = jnp.take(perm, sidx)
+    send_idx = jnp.take(perm, jnp.clip(sidx, 0, max(npl - 1, 0)))
 
     rank = iota - jnp.take(dstarts, sdest)
     pos_sorted = jnp.where(rank < cap, sdest * cap + rank, -1)
     _, send_pos = jax.lax.sort_key_val(perm, pos_sorted)
 
-    # Exchange (cells, fracs) and validity with one all_to_all each.
-    psend = jnp.take(comb, send_idx, axis=1) * send_valid[None, :].astype(
-        comb.dtype
-    )
-    psend = psend.reshape(2 * D, n, cap)
-    precv = jax.lax.all_to_all(psend, ax, split_axis=1, concat_axis=1)
+    def exchange(x):  # (R, Npl) -> (R, S) at the owner devices
+        xs = jnp.take(x, send_idx, axis=1).reshape(x.shape[0], n, cap)
+        xr = jax.lax.all_to_all(xs, ax, split_axis=1, concat_axis=1)
+        return xr.reshape(x.shape[0], S)
+
     recv_valid = jax.lax.all_to_all(
         send_valid.reshape(n, cap), ax, split_axis=0, concat_axis=0
-    ).reshape(-1)
-    comb_r = precv.reshape(2 * D, S)
-
-    cells_r = comb_r[:D].astype(jnp.int32)
-    bid_g = block_ids_from_cells(cells_r, plan.kernel_data, plan.block_dims)
-    me = jax.lax.axis_index(ax)
-    bid_l = bid_g.astype(jnp.int32) - me.astype(jnp.int32) * nblocks_local
-    in_range = (bid_l >= 0) & (bid_l < nblocks_local) & recv_valid
-    bid_l = jnp.where(in_range, bid_l, nblocks_local)
-
-    # Windowed accumulation on the local kernels (round-1 VERDICT weak #5:
-    # local plans silently dropped the fast engines): sub-sort by the dim-0
-    # cell inside each local block so batches span narrow x-windows.
-    window = None
-    window_y = None
-    sub_lx = None
-    sub_ly = None
-    B0 = plan.block_dims[0]
-    B1 = plan.block_dims[1] if D >= 2 else 1
-    if plan.window_rows is not None:
-        pd0 = (plan.padded_dims or (0,))[0]
-        window = (plan.m, plan.window_rows, pd0, plan.window_align)
-        # Invalid/parked lanes must keep their parking-bin ordering; their
-        # sub-key is irrelevant (never read by a program).
-        sub_lx = jnp.where(in_range, cells_r[0] % jnp.int32(B0), 0)
-        if plan.window_rows_y is not None:
-            window_y = (plan.window_rows_y, plan.padded_dims[1])
-            sub_ly = jnp.where(in_range, cells_r[1] % jnp.int32(B1), 0)
-
-    # with_inverse: the routed layout keeps the explicit receive-slot map
-    # (used by the all-to-all unroute bookkeeping), unlike the single-chip
-    # path whose type-2 un-permute is a masked sort.
-    out = slot_layout(
-        bid_l, nblocks_local, plan.batch_size, virtual=1, with_inverse=True,
-        sub_lx=sub_lx, sub_range=B0 if sub_lx is not None else 1,
-        window=window,
-        sub_ly=sub_ly, sub_range_y=B1 if sub_ly is not None else 1,
-        window_y=window_y, shifted=plan.row_shifted,
-    )
-    if window_y is not None:
-        s2p, svalid, pslots, bstarts, batch_r0, batch_r1 = out
-    else:
-        (s2p, svalid, pslots, bstarts, batch_r0), batch_r1 = out, None
-    svalid = svalid & jnp.take(recv_valid, s2p)
-    DP = -(-(2 * D) // 8) * 8
-    pts_slotted = gather_slots(comb_r, s2p, svalid, rows=DP, mask=False)
-    if batch_r0 is None:
-        batch_r0 = jnp.full((1,), -1, jnp.int32)
-    if batch_r1 is None:
-        batch_r1 = jnp.full((1,), -1, jnp.int32)
-    return (
-        send_idx, send_valid, send_pos, recv_valid, pslots, pts_slotted,
-        s2p, svalid, bstarts, batch_r0, batch_r1, overflow,
-    )
+    ).reshape(S)
+    cells_r = exchange(cells)
+    fracs_r = exchange(fracs)
+    me = jax.lax.axis_index(ax).astype(jnp.int32)
+    # Slab-local dim-0 cells; invalid (padding) lanes sit at plane 0 and
+    # carry zero values / discarded outputs.
+    c0 = jnp.where(recv_valid, cells_r[0] - me * slab, 0)
+    cells_r = cells_r.at[0].set(c0)
+    return send_idx, send_valid, send_pos, recv_valid, cells_r, fracs_r, overflow
 
 
 def _route_values(v_flat, send_idx, send_valid, n, cap, ax):
-    """(CR, Npl) original-order values -> (CR, S) routed to owner chips."""
+    """(CR, Npl) original-order values -> (CR, S) routed to owner devices."""
     vs = jnp.take(v_flat, send_idx, axis=1) * send_valid[None, :].astype(
         v_flat.dtype
     )
@@ -559,7 +311,7 @@ def _route_values(v_flat, send_idx, send_valid, n, cap, ax):
 
 
 def _unroute_values(r_flat, send_pos, n, cap, ax):
-    """(CR, S) values at owner chips -> (CR, Npl) back in original order."""
+    """(CR, S) values at owner devices -> (CR, Npl) back in original order."""
     rs = r_flat.reshape(r_flat.shape[0], n, cap)
     rb = jax.lax.all_to_all(rs, ax, split_axis=1, concat_axis=1)
     rb = rb.reshape(r_flat.shape[0], n * cap)
@@ -567,379 +319,123 @@ def _unroute_values(r_flat, send_pos, n, cap, ax):
     return jnp.take(rb, pos, axis=1)
 
 
-def _ring_perm(n):
-    return [(i, (i + 1) % n) for i in range(n)]
-
-
-def _forward_blockform_z_sharded(buf, axes_l, k0c, n, me, ax, *, real, prec):
-    """Z-form forward DFT with the k0 (dim-0 mode) axis ring-reduce-scattered.
-
-    Memory-scaling counterpart of ``forward_dft_blockform_z`` + ``psum``:
-    axes D-1 .. 1 contract locally (the chip only holds its nb0_local padded
-    block rows), then the axis-0 contraction is computed one k0 *chunk* at a
-    time and reduce-scattered around the ring — chunk j is created at chip
-    j+1, visits every chip (each adds its local-row partial), and completes
-    at its owner chip j after n-1 ``ppermute`` hops.  No chip ever holds more
-    than one (C, 2, k0/n) + k_rest chunk of spectrum.
-
-    ``buf``: (C[, 2], nb0_local, pd0, .., L_last) local padded buffer;
-    ``axes_l``: per-chip blockform factors (axis 0 row-sliced, full k0).
-    Returns this chip's (C, 2, k0/n, k1, ..) spectrum shard (unnormalised).
-    """
-    D = len(axes_l)
-    if real:
-        axL = axes_l[D - 1]
-        p = matmul_fft.PRECISIONS[prec]
-        nd = buf.ndim
-        dn = (((nd - 1,), (0,)), ((), ()))
-        xr = jax.lax.dot_general(buf, axL.pcos_t, dn, precision=p)
-        xi = -jax.lax.dot_general(buf, axL.psin_t, dn, precision=p)
-    else:
-        xr, xi = buf[:, 0], buf[:, 1]
-        axL = axes_l[D - 1]
-        xr, xi = matmul_fft._cplx_pair_dot(
-            xr, xi, axL.pcos_t, axL.psin_t, 1.0, (xr.ndim - 1,), prec
-        )
-    # (C, nb0, pd0, nb1, pd1, .., k_{D-1}); contract middle (nb, pd) pairs —
-    # the next pending pair always sits at dims (3, 4).
-    for d in range(1, D - 1):
-        axd = axes_l[d]
-        xr, xi = matmul_fft._cplx_pair_dot(
-            xr, xi, axd.pcos_t, axd.psin_t, 1.0, (3, 4), prec
-        )
-    # Now (C, nb0, pd0, k_{D-1}, k_1, .., k_{D-2}).
-    ax0 = axes_l[0]
-
-    def partial_chunk(j):
-        f_c = jax.lax.dynamic_slice_in_dim(ax0.pcos_t, j * k0c, k0c, axis=2)
-        f_s = jax.lax.dynamic_slice_in_dim(ax0.psin_t, j * k0c, k0c, axis=2)
-        return matmul_fft._cplx_pair_dot(xr, xi, f_c, f_s, 1.0, (1, 2), prec)
-
-    acc_r, acc_i = partial_chunk(jnp.mod(me - 1, n))
-    perm = _ring_perm(n)
-    for t in range(1, n):
-        acc_r = jax.lax.ppermute(acc_r, ax, perm)
-        acc_i = jax.lax.ppermute(acc_i, ax, perm)
-        pr, pi = partial_chunk(jnp.mod(me - 1 - t, n))
-        acc_r, acc_i = acc_r + pr, acc_i + pi
-    # acc = the complete chunk owned by this chip (slice ``me``), laid out
-    # (C, k_{D-1}, k_1, .., k_{D-2}, k0c) -> natural (C, k0c, k1, .., k_{D-1}).
-    nd = acc_r.ndim
-    order = [D - 1] + list(range(1, D - 1)) + [0]  # dim index by position
-    perm_out = (0,) + tuple(1 + order.index(d) for d in range(D))
-    if perm_out != tuple(range(nd)):
-        acc_r = jnp.transpose(acc_r, perm_out)
-        acc_i = jnp.transpose(acc_i, perm_out)
-    return jnp.stack([acc_r, acc_i], axis=1)
-
-
-def _backward_blockform_z_sharded(spec_shard, axes_l, k0c, n, me, ax, *,
-                                  real, prec):
-    """Z-form backward DFT from a k0-sharded spectrum.
-
-    Ring gather-accumulate: the spectrum shards travel the ring (n-1
-    ``ppermute`` hops) and each chip contracts every visiting shard with the
-    matching k0-column slice of its row-sliced axis-0 backward factor — so
-    the full spectrum is never materialised on any chip.  Axes 1 .. D-1 then
-    contract locally, exactly like ``backward_dft_blockform_z``.
-
-    ``spec_shard``: (C, 2, k0/n, k1, ..) this chip's shard, already
-    deconvolution-scaled.  Returns the local padded buffer
-    (C[, 2], nb0_local, pd0, .., L_last)."""
-    D = len(axes_l)
-    ax0 = axes_l[0]
-    xr, xi = spec_shard[:, 0], spec_shard[:, 1]
-
-    def contrib(sr, si, j):
-        b_c = jax.lax.dynamic_slice_in_dim(ax0.bcos_t, j * k0c, k0c, axis=0)
-        b_s = jax.lax.dynamic_slice_in_dim(ax0.bsin_t, j * k0c, k0c, axis=0)
-        return matmul_fft._cplx_pair_dot(sr, si, b_c, b_s, -1.0, (1,), prec)
-
-    acc_r, acc_i = contrib(xr, xi, me)
-    perm = _ring_perm(n)
-    for t in range(1, n):
-        xr = jax.lax.ppermute(xr, ax, perm)
-        xi = jax.lax.ppermute(xi, ax, perm)
-        pr, pi = contrib(xr, xi, jnp.mod(me - t, n))
-        acc_r, acc_i = acc_r + pr, acc_i + pi
-    # acc: (C, k1, .., k_{D-1}, nb0_local, pd0) — the same layout the
-    # replicated driver reaches after its d=0 contraction; finish locally.
-    xr, xi = acc_r, acc_i
-    for d in range(1, D - 1):
-        axd = axes_l[d]
-        xr, xi = matmul_fft._cplx_pair_dot(
-            xr, xi, axd.bcos_t, axd.bsin_t, -1.0, (1,), prec
-        )
-    axL = axes_l[D - 1]
-    if real:
-        p = matmul_fft.PRECISIONS[prec]
-        dn = (((1,), (0,)), ((), ()))
-        return jax.lax.dot_general(xr, axL.bcos_t, dn, precision=p) - (
-            jax.lax.dot_general(xi, axL.bsin_t, dn, precision=p)
-        )
-    xr, xi = matmul_fft._cplx_pair_dot(
-        xr, xi, axL.bcos_t, axL.bsin_t, -1.0, (1,), prec
+def _local_geometry(sp: SpatialNUFFT, plan):
+    """Kernel data and cell offset of the halo-extended local slab: dim 0
+    spans L + 2M - 1 planes with local plane c + M - 1 holding slab cell c,
+    so no stencil ever wraps along dim 0."""
+    ext = sp.slab + 2 * plan.m - 1
+    kd = (dataclasses.replace(plan.kernel_data[0], n=ext),) + tuple(
+        plan.kernel_data[1:]
     )
-    return jnp.stack([xr, xi], axis=1)
+    return kd, (ext,) + plan.shape_over[1:]
 
 
-def _axes_block_local(plan: Plan, me, nb0_local: int):
-    """Per-chip view of the blockform factors: slice the axis-0 factor to
-    the chip's block rows.  The factor matrix already maps every padded row
-    (including the wrap/halo rows at slab boundaries) to its global spectrum
-    contribution, so the sliced contraction is exactly this chip's additive
-    share — summed across chips by one psum (type 1) — and the sliced
-    backward factor emits exactly this chip's padded rows (type 2, no
-    collective)."""
-    axes = plan.fft_axes_block
-    ax0 = axes[0]
-    start = me.astype(jnp.int32) * nb0_local
-    sl_f = lambda a: jax.lax.dynamic_slice_in_dim(a, start, nb0_local, axis=0)
-    sl_b = lambda a: jax.lax.dynamic_slice_in_dim(a, start, nb0_local, axis=1)
-    fold_kw = {}
-    if ax0.fold is not None:
-        # Folded factors slice identically: (nb, pd, U) rows / (U, nb, pd).
-        fold_kw = dict(
-            fpcos_t=sl_f(ax0.fpcos_t), fpsin_t=sl_f(ax0.fpsin_t),
-            fbcos_t=sl_b(ax0.fbcos_t), fbsin_t=sl_b(ax0.fbsin_t),
-        )
-    ax0_l = dataclasses.replace(
-        ax0,
-        nb=nb0_local,
-        pcos_t=sl_f(ax0.pcos_t),
-        psin_t=sl_f(ax0.psin_t),
-        bcos_t=sl_b(ax0.bcos_t),
-        bsin_t=sl_b(ax0.bsin_t),
-        **fold_kw,
-    )
-    return (ax0_l,) + tuple(axes[1:])
+def _ring(n, step):
+    return [(i, (i + step) % n) for i in range(n)]
 
 
-def _exec_type1_body(sp: SpatialNUFFT, plan: Plan, st, v_l):
-    ax = sp.axis_name
-    n = sp.n
-    me = jax.lax.axis_index(ax)
+def _exec_type1_body(sp: SpatialNUFFT, plan, st, v_l):
+    ax, n, m, L = sp.axis_name, sp.n, plan.m, sp.slab
     cap = st.send_idx.shape[0] // n
     D = plan.ndim
-
-    # Route values to owner chips.
     C = v_l.shape[0]
-    CR = C if plan.is_real else 2 * C
-    v_flat = v_l.reshape(CR, -1)
-    v_routed = _route_values(v_flat, st.send_idx, st.send_valid, n, cap, ax)
-
-    L = sp._local_plan(st)
-    offset = jnp.zeros((D,), jnp.int32).at[0].set(
-        me.astype(jnp.int32) * sp.nb0_local
-    )
-    if sp.engine == "blockform":
-        # Z-form kernels + distributed blockform DFT: local contraction with
-        # the chip's factor slice, one psum.  Halo merge, relayout,
-        # truncation and deconvolution all live in the factor matrices.
-        if plan.is_real:
-            buf = blocked.spread_blocked(
-                L, v_routed, block_offset=offset, shard_axis=ax,
-                raw_output=True,
-            )
-        else:
-            buf = blocked.spread_blocked(
-                L, v_routed.reshape(C, 2, -1), channel_input=True,
-                block_offset=offset, shard_axis=ax, raw_output=True,
-            )
-            buf = buf.reshape((C, 2) + buf.shape[1:])
-        axes_l = _axes_block_local(plan, me, sp.nb0_local)
-        if sp.spectrum == "sharded":
-            k0c = plan.spectral_shape[0] // n
-            spec = _forward_blockform_z_sharded(
-                buf, axes_l, k0c, n, me, ax, real=plan.is_real,
-                prec=plan.precision,
-            )
-        else:
-            spec = matmul_fft.forward_dft_blockform_z(
-                buf, axes_l, real=plan.is_real, prec=plan.precision
-            )
-            spec = jax.lax.psum(spec, ax)
-        return spec * jnp.asarray(plan.normfactor, spec.dtype)
+    v_r = _route_values(v_l.reshape(-1, v_l.shape[-1]), st.send_idx,
+                        st.send_valid, n, cap, ax)
     if plan.is_real:
-        grid = blocked.spread_blocked(
-            L, v_routed, block_offset=offset, shard_axis=ax
-        )  # (C, N0l, N1, N2)
-        xr, xi = None, None
+        vals = v_r.astype(plan.dtype)
     else:
-        grid = blocked.spread_blocked(
-            L, v_routed.reshape(C, 2, -1), channel_input=True,
-            channel_output=True, block_offset=offset, shard_axis=ax,
-        )  # (C, 2, N0l, ...)
+        v_r = v_r.reshape(C, 2, -1)
+        vals = jax.lax.complex(v_r[:, 0], v_r[:, 1]).astype(plan.dtype)
 
-    # ---- distributed forward DFT + deconvolution ----
-    prec = plan.precision
-    fx = plan.fft_axes
+    kd, ext_shape = _local_geometry(sp, plan)
+    cells = st.cells.at[0].add(m - 1)
+    g = spread_cells(kd, plan.evalmode, ext_shape, cells, st.fracs, vals,
+                     chunk_size=plan.chunk_size)
+    # Halo merge: the first M-1 planes belong to the previous slab's tail,
+    # the last M planes to the next slab's head.
+    core = g[:, m - 1 : m - 1 + L]
+    head = jax.lax.ppermute(g[:, m - 1 + L :], ax, _ring(n, 1))
+    core = core.at[:, :m].add(head)
+    if m > 1:
+        tail = jax.lax.ppermute(g[:, : m - 1], ax, _ring(n, -1))
+        core = core.at[:, L - (m - 1) :].add(tail)
+
+    # ---- distributed forward FFT + truncation + deconvolution ----
     rngs = plan.index_ranges
+    x = core
     if plan.is_real:
-        xr, xi = matmul_fft._r2c_last(grid, fx[D - 1], prec)
+        x = jnp.fft.rfft(x, axis=-1)
     else:
-        xr, xi = grid[:, 0], grid[:, 1]
-        xr, xi = _dft_axis(xr, xi, fx[D - 1], 1 + (D - 1), 1.0, prec)
-    # Local axes D-1 .. 1: transform + truncate (all local).
-    xr = truncate_axis(xr, 1 + (D - 1), rngs[D - 1])
-    xi = truncate_axis(xi, 1 + (D - 1), rngs[D - 1])
+        x = jnp.fft.fft(x, axis=-1)
+    x = truncate_axis(x, D, rngs[D - 1])
     for d in range(D - 2, 0, -1):
-        xr, xi = _dft_axis(xr, xi, fx[d], 1 + d, 1.0, prec)
-        xr = truncate_axis(xr, 1 + d, rngs[d])
-        xi = truncate_axis(xi, 1 + d, rngs[d])
-    # Transpose sharding dim0 <-> dim1 and do the dim-0 DFT locally.
-    xr = jax.lax.all_to_all(xr, ax, split_axis=2, concat_axis=1, tiled=True)
-    xi = jax.lax.all_to_all(xi, ax, split_axis=2, concat_axis=1, tiled=True)
-    xr, xi = _dft_axis(xr, xi, fx[0], 1, 1.0, prec)
-    xr = truncate_axis(xr, 1, rngs[0])
-    xi = truncate_axis(xi, 1, rngs[0])
+        x = truncate_axis(jnp.fft.fft(x, axis=1 + d), 1 + d, rngs[d])
+    # Transpose the sharding dim0 <-> dim1 and do the dim-0 FFT locally.
+    x = jax.lax.all_to_all(x, ax, split_axis=2, concat_axis=1, tiled=True)
+    x = truncate_axis(jnp.fft.fft(x, axis=1), 1, rngs[0])
+    x = x * jnp.asarray(plan.normfactor, x.real.dtype)
+    x = _scale_phihat(x, plan, jax.lax.axis_index(ax))
+    if sp.spectrum == "replicated":
+        x = jax.lax.all_gather(x, ax, axis=2, tiled=True)
+    return jnp.stack([x.real, x.imag], axis=1).astype(plan.real_dtype)
 
-    # Deconvolution scale: full factors on dims != 1, a per-chip slice on
-    # the (sharded) dim 1.
-    scale = jnp.asarray(plan.normfactor, xr.dtype)
-    xr = xr * scale
-    xi = xi * scale
-    for d in range(D):
+
+def _scale_phihat(x, plan, me):
+    """Multiply by the per-dim deconvolution factors; dim 1 is sharded."""
+    for d in range(plan.ndim):
         ph = plan.phihat_inv[d]
         if d == 1:
-            k = ph.shape[0] // n
-            ph = jax.lax.dynamic_slice(ph, (me * k,), (k,))
-        shape = [1] * xr.ndim
+            k = x.shape[2]
+            ph = jax.lax.dynamic_slice_in_dim(ph, me * k, k)
+        shape = [1] * x.ndim
         shape[1 + d] = ph.shape[0]
-        xr = xr * ph.reshape(shape)
-        xi = xi * ph.reshape(shape)
-
-    if sp.spectrum == "sharded":
-        # Dim-1 shards ARE the sharded layout; no gather.
-        return jnp.stack([xr, xi], axis=1)
-    # Gather the dim-1 shards into the full replicated spectrum.
-    xr = jax.lax.all_gather(xr, ax, axis=2, tiled=True)
-    xi = jax.lax.all_gather(xi, ax, axis=2, tiled=True)
-    return jnp.stack([xr, xi], axis=1)
+        x = x * ph.reshape(shape)
+    return x
 
 
-def _exec_type2_body(sp: SpatialNUFFT, plan: Plan, st, u_full):
-    ax = sp.axis_name
-    n = sp.n
-    me = jax.lax.axis_index(ax)
+def _exec_type2_body(sp: SpatialNUFFT, plan, st, u):
+    ax, n, m, L = sp.axis_name, sp.n, plan.m, sp.slab
     cap = st.send_idx.shape[0] // n
     D = plan.ndim
-    prec = plan.precision
-    fx = plan.fft_axes
+    me = jax.lax.axis_index(ax)
     rngs = plan.index_ranges
+    x = jax.lax.complex(u[:, 0], u[:, 1]).astype(plan.complex_dtype)
+    C = x.shape[0]
+    if sp.spectrum == "replicated":
+        k1 = x.shape[2] // n
+        x = jax.lax.dynamic_slice_in_dim(x, me * k1, k1, axis=2)
+    x = _scale_phihat(x, plan, me)
 
-    C = u_full.shape[0]
-    xr, xi = u_full[:, 0], u_full[:, 1]
-
-    if sp.engine == "blockform":
-        # Deconvolution-scale the spectrum (dim-0 factor sliced per chip
-        # when the input arrives k0-sharded), then the backward blockform
-        # DFT emits this chip's padded block buffer directly — collective-
-        # free with a replicated input; a ring shard gather when sharded.
-        sharded = sp.spectrum == "sharded"
-        k0c = plan.spectral_shape[0] // n if sharded else None
-        for d in range(D):
-            ph = plan.phihat_inv[d]
-            if sharded and d == 0:
-                ph = jax.lax.dynamic_slice(ph, (me * k0c,), (k0c,))
-            shape = [1] * xr.ndim
-            shape[1 + d] = ph.shape[0]
-            xr = xr * ph.reshape(shape)
-            xi = xi * ph.reshape(shape)
-        spec = jnp.stack([xr, xi], axis=1)
-        axes_l = _axes_block_local(plan, me, sp.nb0_local)
-        if sharded:
-            buf = _backward_blockform_z_sharded(
-                spec, axes_l, k0c, n, me, ax, real=plan.is_real,
-                prec=plan.precision,
-            )
-        else:
-            buf = matmul_fft.backward_dft_blockform_z(
-                spec, axes_l, real=plan.is_real, prec=plan.precision
-            )
-        L = sp._local_plan(st)
-        offset = jnp.zeros((D,), jnp.int32).at[0].set(
-            me.astype(jnp.int32) * sp.nb0_local
-        )
-        if plan.is_real:
-            flat = blocked.interpolate_blocked(
-                L, None, halos_in=buf, block_offset=offset, shard_axis=ax
-            )
-        else:
-            buf2 = buf.reshape((2 * C,) + buf.shape[2:])
-            vals = blocked.interpolate_blocked(
-                L, None, halos_in=buf2, channel_output=True,
-                block_offset=offset, shard_axis=ax,
-            )
-            flat = vals.reshape(2 * C, -1)
-        flat = flat * st.recv_valid[None, :].astype(flat.dtype)
-        back = _unroute_values(flat, st.send_pos, n, cap, ax)
-        return back if plan.is_real else back.reshape(C, 2, -1)
-
-    # Slice my dim-1 shard (already local when the spectrum arrives
-    # sharded), apply deconvolution factors (dim-1 sliced).
-    if sp.spectrum == "sharded":
-        k1 = xr.shape[2]
-    else:
-        k1 = xr.shape[2] // n
-        xr = jax.lax.dynamic_slice_in_dim(xr, me * k1, k1, axis=2)
-        xi = jax.lax.dynamic_slice_in_dim(xi, me * k1, k1, axis=2)
-    for d in range(D):
-        ph = plan.phihat_inv[d]
-        if d == 1:
-            ph = jax.lax.dynamic_slice(ph, (me * k1,), (k1,))
-        shape = [1] * xr.ndim
-        shape[1 + d] = ph.shape[0]
-        xr = xr * ph.reshape(shape)
-        xi = xi * ph.reshape(shape)
-
-    # Dim-0: pad + backward DFT locally (full axis present), then transpose
-    # the sharding back to dim 0.
-    xr = pad_axis(xr, 1, rngs[0], plan.shape_over[0])
-    xi = pad_axis(xi, 1, rngs[0], plan.shape_over[0])
-    xr, xi = _dft_axis(xr, xi, fx[0], 1, -1.0, prec)
-    xr = jax.lax.all_to_all(xr, ax, split_axis=1, concat_axis=2, tiled=True)
-    xi = jax.lax.all_to_all(xi, ax, split_axis=1, concat_axis=2, tiled=True)
-
-    # Remaining axes: pad + backward DFT locally.
+    # Dim 0: pad + unnormalised backward FFT locally (full axis present),
+    # then transpose the sharding back to dim 0.
+    n0 = plan.shape_over[0]
+    x = jnp.fft.ifft(pad_axis(x, 1, rngs[0], n0), axis=1) * n0
+    x = jax.lax.all_to_all(x, ax, split_axis=1, concat_axis=2, tiled=True)
     for d in range(1, D - 1):
-        xr = pad_axis(xr, 1 + d, rngs[d], plan.shape_over[d])
-        xi = pad_axis(xi, 1 + d, rngs[d], plan.shape_over[d])
-        xr, xi = _dft_axis(xr, xi, fx[d], 1 + d, -1.0, prec)
-    dlast = D - 1
-    spec_last = (
-        plan.shape_over[dlast] // 2 + 1 if plan.is_real
-        else plan.shape_over[dlast]
-    )
-    xr = pad_axis(xr, 1 + dlast, rngs[dlast], spec_last)
-    xi = pad_axis(xi, 1 + dlast, rngs[dlast], spec_last)
+        nd = plan.shape_over[d]
+        x = jnp.fft.ifft(pad_axis(x, 1 + d, rngs[d], nd), axis=1 + d) * nd
+    nl = plan.shape_over[D - 1]
     if plan.is_real:
-        xr = jnp.moveaxis(xr, 1 + dlast, -1)
-        xi = jnp.moveaxis(xi, 1 + dlast, -1)
-        grid = matmul_fft._c2r_last(xr, xi, fx[dlast], prec)
-        grid = jnp.moveaxis(grid, -1, 1 + dlast)
+        x = pad_axis(x, D, rngs[D - 1], nl // 2 + 1)
+        grid = jnp.fft.irfft(x, n=nl, axis=-1) * nl
     else:
-        xr, xi = _dft_axis(xr, xi, fx[dlast], 1 + dlast, -1.0, prec)
-        grid = jnp.stack([xr, xi], axis=1)
+        grid = jnp.fft.ifft(pad_axis(x, D, rngs[D - 1], nl), axis=-1) * nl
 
-    # Local interpolation + route the results back to the source chips.
-    L = sp._local_plan(st)
-    offset = jnp.zeros((D,), jnp.int32).at[0].set(
-        me.astype(jnp.int32) * sp.nb0_local
-    )
+    # Halo gather: the previous slab's last M-1 planes, then this slab,
+    # then the next slab's first M planes.
+    parts = [grid, jax.lax.ppermute(grid[:, :m], ax, _ring(n, -1))]
+    if m > 1:
+        parts.insert(0, jax.lax.ppermute(grid[:, L - (m - 1) :], ax, _ring(n, 1)))
+    ext = jnp.concatenate(parts, axis=1)
+
+    kd, _ = _local_geometry(sp, plan)
+    cells = st.cells.at[0].add(m - 1)
+    vals = interpolate_cells(kd, plan.evalmode, ext, cells, st.fracs,
+                             plan.normfactor, chunk_size=plan.chunk_size)
     if plan.is_real:
-        vals = blocked.interpolate_blocked(
-            L, grid, block_offset=offset, shard_axis=ax
-        )  # (C, S)
-        flat = vals
+        flat = vals.real.astype(plan.real_dtype)
     else:
-        vals = blocked.interpolate_blocked(
-            L, grid, channel_input=True, channel_output=True,
-            block_offset=offset, shard_axis=ax,
-        )  # (C, 2, S)
-        flat = vals.reshape(2 * C, -1)
+        flat = jnp.stack([vals.real, vals.imag], axis=1).reshape(2 * C, -1)
     flat = flat * st.recv_valid[None, :].astype(flat.dtype)
     back = _unroute_values(flat, st.send_pos, n, cap, ax)
-    if plan.is_real:
-        return back
-    return back.reshape(C, 2, -1)
+    return back if plan.is_real else back.reshape(C, 2, -1)

@@ -2,26 +2,9 @@
 
 Needed by the Kaiser-Bessel window (direct evaluation, reference:
 src/Kernels/kaiser_bessel.jl:196-210) and the backwards-KB Fourier factors
-(src/Kernels/kaiser_bessel_backwards.jl:138-145).
-
-Two evaluators:
-
-- :func:`besseli0` routes through ``jax.scipy.special.i0`` (accurate to
-  ~4e-14 in f64) — for trace-level / host use.  Its ``bessel_i0e``
-  primitive has NO Pallas-Mosaic lowering, so it cannot be called inside a
-  compiled TPU kernel (found by the on-device test matrix; interpret mode
-  hides it).
-- :func:`besseli0_poly` is a Cephes-style two-branch Chebyshev evaluation
-  (coefficients fit once at import from scipy's f64 ``i0``) built from
-  plain mul/add/exp/sqrt/where, all of which lower in Mosaic.  f64 error
-  ~1e-15 relative (so the interpret/f64 CI paths agree with scipy to the
-  usual floor); in f32 it is at the arithmetic floor.  Used by the
-  in-kernel direct KB path (ops/pallas/common.py:window_weights).
+(src/Kernels/kaiser_bessel_backwards.jl:138-145).  Routes through
+``jax.scipy.special.i0`` (accurate to ~4e-14 in f64).
 """
-
-from __future__ import annotations
-
-import numpy as np
 
 import jax.numpy as jnp
 import jax.scipy.special as _jsp
@@ -29,65 +12,3 @@ import jax.scipy.special as _jsp
 
 def besseli0(x):
     return _jsp.i0(jnp.asarray(x))
-
-
-def _fit_cheb(f, lo, hi, deg):
-    """Chebyshev coefficients of f on [lo, hi] (f64, Chebyshev nodes)."""
-    k = np.arange(deg + 1)
-    # Chebyshev-Gauss nodes in [-1, 1], mapped to [lo, hi].
-    t = np.cos(np.pi * (k + 0.5) / (deg + 1))
-    x = 0.5 * (hi - lo) * (t + 1.0) + lo
-    y = f(x)
-    # Discrete cosine fit (exact on the nodes).
-    c = np.zeros(deg + 1)
-    for j in range(deg + 1):
-        c[j] = (2.0 / (deg + 1)) * np.sum(
-            y * np.cos(np.pi * j * (k + 0.5) / (deg + 1))
-        )
-    c[0] *= 0.5
-    return c
-
-
-def _i0e_scipy(x):
-    from scipy.special import i0e  # e^{-x} I0(x), no overflow
-
-    return i0e(x)
-
-
-# Branch 1 (x in [0, 8]): e^{-x} I0(x) in s = x/4 - 1.
-_C_SMALL = tuple(_fit_cheb(_i0e_scipy, 0.0, 8.0, 30))
-# Branch 2 (x >= 8): sqrt(x) e^{-x} I0(x) in s = 16/x - 1 (s -> -1 as
-# x -> inf, where the function tends to 1/sqrt(2 pi)).
-_C_LARGE = tuple(
-    _fit_cheb(
-        lambda s: np.sqrt(16.0 / (s + 1.0))
-        * _i0e_scipy(16.0 / (s + 1.0)),
-        -1.0,
-        1.0,
-        30,
-    )
-)
-
-
-def _clenshaw(s, coeffs, dt):
-    b1 = jnp.zeros_like(s)
-    b2 = jnp.zeros_like(s)
-    two_s = 2.0 * s
-    for c in coeffs[:0:-1]:
-        b1, b2 = two_s * b1 - b2 + jnp.asarray(c, dt), b1
-    return s * b1 - b2 + jnp.asarray(coeffs[0], dt)
-
-
-def besseli0_poly(x):
-    """I0(x) for x >= 0 via two Chebyshev branches (f64 rel err ~1e-15).
-
-    Mosaic-lowerable (no bessel primitives).  f32-safe up to x ~ 88
-    (e^x overflow), far above any kernel beta in range (beta ~ 47 at the
-    m = 10 cap).
-    """
-    x = jnp.asarray(x)
-    dt = x.dtype
-    small = _clenshaw(x * 0.25 - 1.0, _C_SMALL, dt)
-    xl = jnp.maximum(x, jnp.asarray(8.0, dt))
-    large = _clenshaw(16.0 / xl - 1.0, _C_LARGE, dt) / jnp.sqrt(xl)
-    return jnp.where(x <= 8.0, small, large) * jnp.exp(x)

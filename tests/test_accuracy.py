@@ -118,8 +118,7 @@ def test_f32_high_m_dynamic_range(kernel, m):
     err1, err2 = run_1d(np.complex64, kernel, m, 2.0)
     assert np.isfinite(err1) and np.isfinite(err2), (err1, err2)
     # ~1.6e-5 = the f32 coordinate floor of the plain (x/L)*N cell split at
-    # N_over=512 (the blocked path's double-single split does better); the
-    # broken unnormalised windows gave 1e-2 .. nan here.
+    # N_over=512; the broken unnormalised windows gave 1e-2 .. nan here.
     assert err1 < 5e-5, err1
     assert err2 < 5e-5, err2
 

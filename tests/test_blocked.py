@@ -1,27 +1,32 @@
-"""Blocked (Pallas) fast path vs the reference path.
+"""Blocked path (bin sort + Pallas spread kernel) vs the reference path.
 
 The analogue of the reference's test/pseudo_gpu.jl: the accelerated code path
 is run on an emulated backend (Pallas ``interpret=True`` on CPU — the role
 POCL/OpenCL plays for the reference) and compared against the plain path on
 identical seeded inputs (reference oracle strategy, pseudo_gpu.jl:109-174).
-
-Also validates the MXU matmul-DFT engine against XLA's native FFT.
+The kernel computes in float32, so blocked plans are 32-bit and the
+tolerances are float32's.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import nonuniformffts_tpu as nufft
+from nonuniformffts_tpu.ops.pallas import spread as S
+from nonuniformffts_tpu.ops.pallas.common import overlap_add
 from nufft_test_utils import random_values
 
 CASES = [
-    ((64,), np.complex128, 1),
-    ((32, 24), np.complex128, 1),
-    ((16, 12, 20), np.complex128, 2),
-    ((24, 18), np.float64, 1),
-    ((12, 10, 14), np.float64, 1),
+    ((64,), np.complex64, 1),
     ((32, 24), np.complex64, 1),
+    ((16, 12, 20), np.complex64, 2),
+    ((24, 18), np.float32, 1),
+    ((12, 10, 14), np.float32, 1),
+    ((32, 24), np.complex64, 3),
 ]
+TOL = 1e-5
 
 
 def _make_inputs(shape, dtype, C, Np, rng):
@@ -32,595 +37,263 @@ def _make_inputs(shape, dtype, C, Np, rng):
     return pts, (v[0] if C == 1 else v)
 
 
-def _roundtrip(plan, pts, v):
+def _roundtrip(plan, pts, v, callbacks=None):
     plan = nufft.set_points(plan, pts)
-    u = np.asarray(nufft.exec_type1(plan, v))
-    v2 = np.asarray(nufft.exec_type2(plan, u.astype(plan.complex_dtype)))
+    u = np.asarray(nufft.exec_type1(plan, v, callbacks=callbacks))
+    v2 = np.asarray(nufft.exec_type2(plan, u.astype(plan.complex_dtype),
+                                     callbacks=callbacks))
     return u, v2
+
+
+def _rel(a, b):
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+
+
+def _blocked(dtype, shape, **kw):
+    return nufft.PlanNUFFT(dtype, shape, spread_method="blocked",
+                           interpret=True, **kw)
 
 
 @pytest.mark.parametrize("shape,dtype,C", CASES, ids=lambda c: str(c))
 def test_blocked_matches_reference(shape, dtype, C, rng):
     pts, v = _make_inputs(shape, dtype, C, 500, rng)
-    ref = nufft.PlanNUFFT(dtype, shape, ntransforms=C, sigma=2.0)
-    blk = nufft.PlanNUFFT(
-        dtype, shape, ntransforms=C, sigma=2.0,
-        spread_method="blocked", interpret=True,
-    )
+    ref = nufft.PlanNUFFT(dtype, shape, ntransforms=C, sigma=2.0,
+                          spread_method="reference")
+    blk = _blocked(dtype, shape, ntransforms=C, sigma=2.0)
     u_ref, v2_ref = _roundtrip(ref, pts, v)
     u_blk, v2_blk = _roundtrip(blk, pts, v)
-    tol = 1e-5 if np.dtype(dtype).itemsize <= 8 else 1e-12
-    assert np.abs(u_blk - u_ref).max() / np.abs(u_ref).max() < tol
-    assert np.abs(v2_blk - v2_ref).max() / np.abs(v2_ref).max() < tol
-
-
-@pytest.mark.parametrize("variant", ["pruned", "split"])
-@pytest.mark.parametrize("shape,dtype,C", CASES[:4], ids=lambda c: str(c))
-def test_blocked_with_matmul_fft(shape, dtype, C, variant, rng):
-    """Full TPU-path configuration (blocked spreading + matmul DFT), run via
-    the interpreter on CPU, against the plain XLA path.  Covers both DFT
-    engine variants: 'pruned' (deconvolution/truncation baked into the
-    factor matrices) and 'split' (four-step Cooley-Tukey)."""
-    pts, v = _make_inputs(shape, dtype, C, 400, rng)
-    ref = nufft.PlanNUFFT(dtype, shape, ntransforms=C, sigma=2.0, fft_method="xla")
-    blk = nufft.PlanNUFFT(
-        dtype, shape, ntransforms=C, sigma=2.0,
-        spread_method="blocked", interpret=True, fft_method="matmul",
-        fft_variant=variant,
-    )
-    u_ref, v2_ref = _roundtrip(ref, pts, v)
-    u_blk, v2_blk = _roundtrip(blk, pts, v)
-    tol = 1e-5 if np.dtype(dtype).itemsize <= 8 else 1e-12
-    assert np.abs(u_blk - u_ref).max() / np.abs(u_ref).max() < tol
-    assert np.abs(v2_blk - v2_ref).max() / np.abs(v2_ref).max() < tol
+    assert _rel(u_blk, u_ref) < TOL
+    assert _rel(v2_blk, v2_ref) < TOL
 
 
 @pytest.mark.parametrize("fftshift", [False, True])
-@pytest.mark.parametrize("dtype", [np.complex128, np.float64])
-def test_pruned_fft_fftshift_and_r2c(dtype, fftshift, rng):
-    """Pruned DFT with fftshift ordering and the r2c half-spectrum layout
-    must match the XLA-FFT path exactly (the spectral column order is baked
-    into the pruned matrices)."""
+@pytest.mark.parametrize("dtype", [np.complex64, np.float32])
+def test_blocked_fftshift_and_r2c(dtype, fftshift, rng):
+    """fftshift ordering and the r2c half-spectrum layout are independent
+    of the spreading method."""
     shape = (18, 16)
     pts, v = _make_inputs(shape, dtype, 1, 300, rng)
     ref = nufft.PlanNUFFT(dtype, shape, sigma=2.0, fftshift=fftshift,
-                          fft_method="xla")
-    blk = nufft.PlanNUFFT(
-        dtype, shape, sigma=2.0, fftshift=fftshift, spread_method="blocked",
-        interpret=True, fft_method="matmul", fft_variant="pruned",
-    )
+                          spread_method="reference")
+    blk = _blocked(dtype, shape, sigma=2.0, fftshift=fftshift)
     u_ref, v2_ref = _roundtrip(ref, pts, v)
     u_blk, v2_blk = _roundtrip(blk, pts, v)
-    assert np.abs(u_blk - u_ref).max() / np.abs(u_ref).max() < 1e-12
-    assert np.abs(v2_blk - v2_ref).max() / np.abs(v2_ref).max() < 1e-12
+    assert _rel(u_blk, u_ref) < TOL
+    assert _rel(v2_blk, v2_ref) < TOL
 
 
 def test_blocked_point_distribution_edge_cases(rng):
     """Empty blocks, all points clustered in one block, single point, points
     exactly at block boundaries and near 2pi."""
     shape = (32, 24)
-    plan0 = nufft.PlanNUFFT(
-        np.complex128, shape, sigma=2.0, spread_method="blocked", interpret=True
-    )
-    ref0 = nufft.PlanNUFFT(np.complex128, shape, sigma=2.0)
+    plan0 = _blocked(np.complex64, shape, sigma=2.0)
+    ref0 = nufft.PlanNUFFT(np.complex64, shape, sigma=2.0,
+                           spread_method="reference")
     cases = {
         "clustered": rng.uniform(0.0, 0.05, (2, 300)),
         "single": np.array([[1.234], [2.345]]),
         "boundaries": np.stack(
             [
                 np.linspace(0, 2 * np.pi, 64, endpoint=False),
-                np.full(64, np.nextafter(2 * np.pi, 0.0)),
+                np.full(64, np.nextafter(np.float32(2 * np.pi), 0)),
             ]
         ),
     }
     for name, pts in cases.items():
-        v = random_values(rng, np.complex128, pts.shape[1])
+        pts = pts.astype(np.float32)
+        v = random_values(rng, np.complex64, pts.shape[1])
         u_ref, v2_ref = _roundtrip(ref0, pts, v)
         u_blk, v2_blk = _roundtrip(plan0, pts, v)
-        assert np.abs(u_blk - u_ref).max() / np.abs(u_ref).max() < 1e-12, name
-        assert np.abs(v2_blk - v2_ref).max() / max(np.abs(v2_ref).max(), 1e-30) < 1e-12, name
+        assert _rel(u_blk, u_ref) < TOL, name
+        assert _rel(v2_blk, v2_ref) < TOL, name
 
 
-def test_blocked_custom_block_dims_and_batch(rng):
+@pytest.mark.parametrize("bdims", [(12, 12), (8, 60), (48, 10)])
+def test_blocked_custom_block_dims(bdims, rng):
     shape = (24, 30)
-    pts, v = _make_inputs(shape, np.complex128, 1, 700, rng)
-    ref = nufft.PlanNUFFT(np.complex128, shape, sigma=2.0)
+    pts, v = _make_inputs(shape, np.complex64, 1, 700, rng)
+    ref = nufft.PlanNUFFT(np.complex64, shape, sigma=2.0,
+                          spread_method="reference")
     u_ref, v2_ref = _roundtrip(ref, pts, v)
-    for bdims, bs in [((12, 12), 32), ((8, 60), 64), ((48, 10), 128)]:
-        blk = nufft.PlanNUFFT(
-            np.complex128, shape, sigma=2.0, spread_method="blocked",
-            interpret=True, block_dims=bdims, batch_size=bs,
-        )
-        u_blk, v2_blk = _roundtrip(blk, pts, v)
-        assert np.abs(u_blk - u_ref).max() / np.abs(u_ref).max() < 1e-12, (bdims, bs)
-        assert np.abs(v2_blk - v2_ref).max() / np.abs(v2_ref).max() < 1e-12, (bdims, bs)
+    blk = _blocked(np.complex64, shape, sigma=2.0, block_dims=bdims)
+    assert blk.block_dims == bdims
+    u_blk, v2_blk = _roundtrip(blk, pts, v)
+    assert _rel(u_blk, u_ref) < TOL
+    assert _rel(v2_blk, v2_ref) < TOL
 
 
 def test_blocked_callbacks_and_fftshift(rng):
-    import jax.numpy as jnp
-
     shape = (16, 20)
-    pts, v = _make_inputs(shape, np.complex128, 1, 200, rng)
-    w = jnp.asarray(rng.uniform(0.5, 1.5, 200))
+    pts, v = _make_inputs(shape, np.complex64, 1, 200, rng)
+    w = jnp.asarray(rng.uniform(0.5, 1.5, 200).astype(np.float32))
     cb = nufft.NUFFTCallbacks(
         nonuniform=lambda vs, n: tuple(x * w[n] for x in vs),
         uniform=lambda ws, idx: tuple(x * 2.0 for x in ws),
     )
     for fftshift in (False, True):
-        ref = nufft.PlanNUFFT(np.complex128, shape, sigma=2.0, fftshift=fftshift)
-        blk = nufft.PlanNUFFT(
-            np.complex128, shape, sigma=2.0, fftshift=fftshift,
-            spread_method="blocked", interpret=True, fft_method="matmul",
-        )
-        ref = nufft.set_points(ref, pts)
-        blk = nufft.set_points(blk, pts)
-        u_ref = np.asarray(nufft.exec_type1(ref, v, callbacks=cb))
-        u_blk = np.asarray(nufft.exec_type1(blk, v, callbacks=cb))
-        assert np.abs(u_blk - u_ref).max() / np.abs(u_ref).max() < 1e-12
-        v_ref = np.asarray(nufft.exec_type2(ref, u_ref, callbacks=cb))
-        v_blk = np.asarray(nufft.exec_type2(blk, u_ref, callbacks=cb))
-        assert np.abs(v_blk - v_ref).max() / np.abs(v_ref).max() < 1e-12
+        ref = nufft.PlanNUFFT(np.complex64, shape, sigma=2.0,
+                              fftshift=fftshift, spread_method="reference")
+        blk = _blocked(np.complex64, shape, sigma=2.0, fftshift=fftshift)
+        u_ref, v_ref = _roundtrip(ref, pts, v, callbacks=cb)
+        u_blk, v_blk = _roundtrip(blk, pts, v, callbacks=cb)
+        assert _rel(u_blk, u_ref) < TOL
+        assert _rel(v_blk, v_ref) < TOL
 
 
-def test_all_kernels_blocked(rng):
+KERNELS = [
+    nufft.KaiserBesselKernel(),
+    nufft.BackwardsKaiserBesselKernel(),
+    nufft.GaussianKernel(),
+    nufft.BSplineKernel(),
+]
+
+
+@pytest.mark.parametrize("mode", [nufft.Direct(), nufft.FastApproximation()],
+                         ids=["Direct", "FastApprox"])
+@pytest.mark.parametrize("kernel", KERNELS,
+                         ids=["KB", "BKB", "Gaussian", "BSpline"])
+def test_all_kernels_blocked(kernel, mode, rng):
+    """Window values are evaluated outside the kernel, so every kernel
+    family and evaluation mode runs through the same kernel."""
     shape = (28, 22)
-    pts, v = _make_inputs(shape, np.complex128, 1, 300, rng)
-    for kernel in [
-        nufft.KaiserBesselKernel(),
-        nufft.BackwardsKaiserBesselKernel(),
-        nufft.GaussianKernel(),
-        nufft.BSplineKernel(),
-    ]:
-        for mode in [nufft.Direct(), nufft.FastApproximation()]:
-            ref = nufft.PlanNUFFT(
-                np.complex128, shape, sigma=2.0, kernel=kernel, kernel_evalmode=mode
-            )
-            blk = nufft.PlanNUFFT(
-                np.complex128, shape, sigma=2.0, kernel=kernel, kernel_evalmode=mode,
-                spread_method="blocked", interpret=True,
-            )
-            u_ref, _ = _roundtrip(ref, pts, v)
-            u_blk, _ = _roundtrip(blk, pts, v)
-            err = np.abs(u_blk - u_ref).max() / np.abs(u_ref).max()
-            assert err < 1e-12, (kernel, mode, err)
-
-
-def test_matmul_fft_standalone(rng):
-    """Direct vs split matmul-DFT against numpy FFT, both directions."""
-    import jax.numpy as jnp
-
-    from nonuniformffts_tpu.ops import matmul_fft as MF
-
-    for n in (24, 30, 32, 96, 125):
-        x = random_values(rng, np.complex128, (2, n))
-        ax = MF.make_axis_dft(n, "c2c", np.float64)
-        ch = jnp.stack([jnp.asarray(x.real), jnp.asarray(x.imag)], axis=1)
-        spec = MF.forward_fft_matmul(ch, (ax,), real=False)
-        got = np.asarray(spec[:, 0] + 1j * spec[:, 1])
-        np.testing.assert_allclose(got, np.fft.fft(x, axis=-1), rtol=1e-10, atol=1e-9)
-        back = MF.backward_fft_matmul(spec, (ax,), real=False)
-        gotb = np.asarray(back[:, 0] + 1j * back[:, 1])
-        np.testing.assert_allclose(gotb, x * n, rtol=1e-10, atol=1e-8)  # bfft(fft(x)) = n x
+    pts, v = _make_inputs(shape, np.complex64, 1, 300, rng)
+    kw = dict(sigma=2.0, kernel=kernel, kernel_evalmode=mode)
+    ref = nufft.PlanNUFFT(np.complex64, shape, spread_method="reference", **kw)
+    blk = _blocked(np.complex64, shape, **kw)
+    u_ref, _ = _roundtrip(ref, pts, v)
+    u_blk, _ = _roundtrip(blk, pts, v)
+    assert _rel(u_blk, u_ref) < TOL
 
 
 def test_blocked_ntransforms_32(rng):
-    """C=32 simultaneous transforms through the channel-stacked kernels
-    (CR=64): correctness vs the reference path.  The reference library fixed
-    C>=32 performance in v0.9.3/v0.9.4; our kernels fold CR into the matmul
-    M dimension, so compile time and efficiency are flat in C."""
+    """C=32 simultaneous transforms: the kernel grid gains one program per
+    pair of real channels (CR=64)."""
     C, Np = 32, 200
-    pts = rng.uniform(0, 2 * np.pi, (1, Np))
-    v = rng.standard_normal((C, Np)) + 1j * rng.standard_normal((C, Np))
+    pts = rng.uniform(0, 2 * np.pi, (1, Np)).astype(np.float32)
+    v = random_values(rng, np.complex64, (C, Np))
     kw = dict(m=4, sigma=2.0, ntransforms=C)
-    pb = nufft.PlanNUFFT(np.complex128, (64,), spread_method="blocked",
-                         interpret=True, fft_method="matmul", **kw)
-    pr = nufft.PlanNUFFT(np.complex128, (64,), spread_method="reference", **kw)
-    ub = np.asarray(nufft.exec_type1(nufft.set_points(pb, pts), v))
-    ur = np.asarray(nufft.exec_type1(nufft.set_points(pr, pts), v))
-    np.testing.assert_allclose(ub, ur, rtol=1e-10, atol=1e-12)
-    vb = np.asarray(nufft.exec_type2(nufft.set_points(pb, pts), ub))
-    vr = np.asarray(nufft.exec_type2(nufft.set_points(pr, pts), ur))
-    np.testing.assert_allclose(vb, vr, rtol=1e-10, atol=1e-12)
+    pb = _blocked(np.complex64, (64,), **kw)
+    pr = nufft.PlanNUFFT(np.complex64, (64,), spread_method="reference", **kw)
+    ub, vb = _roundtrip(pb, pts, v)
+    ur, vr = _roundtrip(pr, pts, v)
+    assert _rel(ub, ur) < TOL
+    assert _rel(vb, vr) < TOL
 
 
-def test_blocked_channel_chunking(rng):
-    """cr_chunk splits large ntransforms into several kernel passes
-    (reference: serial component loop, src/spreading/gpu.jl:293); results
-    must match the single-pass path exactly."""
-    import dataclasses
-
-    Np, shape, C = 800, (16, 16, 24), 4
-    pts = rng.uniform(0, 2 * np.pi, (3, Np)).astype(np.float32)
-    vp = (
-        rng.standard_normal((C, Np)) + 1j * rng.standard_normal((C, Np))
-    ).astype(np.complex64)
-    plan = nufft.PlanNUFFT(
-        np.complex64, shape, m=4, sigma=1.5, ntransforms=C,
-        spread_method="blocked", fft_method="matmul", fft_variant="pruned",
-        interpret=True,
+@pytest.mark.parametrize("C", [1, 3])
+def test_blocked_odd_channel_count(C, rng):
+    """Real plans with an odd number of channels run one channel per
+    program; even counts pair them."""
+    shape = (16, 16, 24)
+    pts, v = _make_inputs(shape, np.float32, C, 800, rng)
+    kw = dict(m=4, sigma=1.5, ntransforms=C)
+    u_b, v_b = _roundtrip(_blocked(np.float32, shape, **kw), pts, v)
+    u_r, v_r = _roundtrip(
+        nufft.PlanNUFFT(np.float32, shape, spread_method="reference", **kw),
+        pts, v,
     )
-    p1 = nufft.set_points(plan, pts)
-    p2 = nufft.set_points(dataclasses.replace(plan, cr_chunk=2), pts)
-    u1 = np.asarray(nufft.exec_type1(p1, vp))
-    u2 = np.asarray(nufft.exec_type1(p2, vp))
-    np.testing.assert_allclose(u2, u1, rtol=2e-6, atol=1e-6)
-    v1 = np.asarray(nufft.exec_type2(p1, u1))
-    v2 = np.asarray(nufft.exec_type2(p2, u1))
-    np.testing.assert_allclose(v2, v1, rtol=2e-6, atol=1e-6)
+    assert _rel(u_b, u_r) < TOL
+    assert _rel(v_b, v_r) < TOL
 
 
-def test_windowed_accumulation_engages(rng):
-    """Dense uniform points must produce mostly windowed (non-fallback)
-    batches, and the result must match the reference path (windowed and
-    fallback compute paths agree)."""
-    Np, shape = 60_000, (32, 32, 32)
-    pts = rng.uniform(0, 2 * np.pi, (3, Np)).astype(np.float32)
-    v = (rng.standard_normal(Np) + 1j * rng.standard_normal(Np)).astype(
-        np.complex64
+@pytest.mark.parametrize("n,m", [(384, 4), (512, 8), (48, 2), (24, 4)])
+def test_block_geometry(n, m):
+    """Block cores divide the grid, reach no further than one neighbour,
+    and fit core + halo into a power-of-two padded extent >= 16."""
+    (b,) = S.choose_block_dims((n,), m)
+    pd = S.padded_extent(b, m)
+    assert n % b == 0 and b >= m
+    assert b + 2 * m - 1 <= pd and pd >= S.MIN_PADDED
+    assert pd & (pd - 1) == 0
+
+
+def _periodic_dense_spread(shape, m, cells, wts, vals):
+    """Numpy oracle: add each point's tensor window onto the periodic grid."""
+    D = len(shape)
+    grid = np.zeros((vals.shape[0],) + tuple(shape))
+    for p in range(cells.shape[1]):
+        idx = [
+            (cells[d, p] - (m - 1) + np.arange(2 * m)) % shape[d]
+            for d in range(D)
+        ]
+        w = wts[0][:, p]
+        for d in range(1, D):
+            w = np.multiply.outer(w, wts[d][:, p])
+        for c in range(vals.shape[0]):
+            np.add.at(grid[c], np.ix_(*idx), w * vals[c, p])
+    return grid
+
+
+@pytest.mark.parametrize("shape", [(40,), (24, 32), (16, 24, 16)])
+def test_kernel_and_overlap_add_match_dense_oracle(shape, rng):
+    """The kernel's padded blocks, merged by overlap_add, equal a dense
+    periodic accumulation of every point's window (random weights, so any
+    misplaced tap shows)."""
+    m, D, Np, CR = 3, len(shape), 150, 2
+    bd = S.choose_block_dims(shape, m)
+    nb = [n // b for n, b in zip(shape, bd)]
+    cells = np.stack([rng.integers(0, n, Np) for n in shape]).astype(np.int32)
+    wts = rng.standard_normal((D, 2 * m, Np)).astype(np.float32)
+    vals = rng.standard_normal((CR, Np)).astype(np.float32)
+    bid = np.zeros(Np, np.int64)
+    for d in range(D):
+        bid = bid * nb[d] + cells[d] // bd[d]
+    order = np.argsort(bid, kind="stable")
+    pstarts = np.searchsorted(bid[order], np.arange(np.prod(nb) + 1))
+    pad = S.BATCH_SIZE
+    local = np.stack([cells[d][order] % bd[d] for d in range(D)])
+    buf = S.spread_padded_blocks(
+        jnp.asarray(pstarts, jnp.int32),
+        jnp.asarray(np.pad(local, ((0, 0), (0, pad)))),
+        jnp.asarray(np.pad(wts[:, :, order], ((0, 0), (0, 0), (0, pad)))),
+        jnp.asarray(np.pad(vals[:, order], ((0, 0), (0, pad)))),
+        m=m, block_dims=bd, interpret=True,
     )
-    plan = nufft.PlanNUFFT(
-        np.complex64, shape, m=4, sigma=1.5, spread_method="blocked",
-        fft_method="matmul", fft_variant="pruned", interpret=True,
-        np_hint=Np,
-    )
-    assert plan.window_rows is not None
-    p = nufft.set_points(plan, pts)
-    r0 = np.asarray(p.batch_r0)
-    frac_windowed = float((r0 >= 0).mean())
-    assert frac_windowed > 0.5, frac_windowed
-    pref = nufft.set_points(
-        nufft.PlanNUFFT(np.complex64, shape, m=4, sigma=1.5,
-                        spread_method="reference", fft_method="xla"), pts
-    )
-    u_ref = np.asarray(nufft.exec_type1(pref, v))
-    u_b = np.asarray(nufft.exec_type1(p, v))
-    err = np.linalg.norm(u_b - u_ref) / np.linalg.norm(u_ref)
-    assert err < 2e-5, err
-    v_ref = np.asarray(nufft.exec_type2(pref, u_ref))
-    v_b = np.asarray(nufft.exec_type2(p, u_ref))
-    err2 = np.linalg.norm(v_b - v_ref) / np.linalg.norm(v_ref)
-    assert err2 < 2e-5, err2
+    padded = tuple(S.padded_extent(b, m) for b in bd)
+    grid = overlap_add(buf.reshape((CR,) + tuple(nb) + padded), bd, m)
+    want = _periodic_dense_spread(shape, m, cells, wts, vals)
+    np.testing.assert_allclose(np.asarray(grid), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("dtype", [np.complex128, np.float64])
-def test_packed_vs_slots_layout(rng, dtype):
-    """The packed (gather-free, edge-masked) point layout must be output-
-    equivalent to the slot-expanded layout on identical inputs, including
-    a dense cluster (many batches in one block, edge batches shared between
-    neighbouring blocks) and near-2pi points."""
-    Np = 4000
-    pts = rng.uniform(0, 2 * np.pi, (3, Np))
-    pts[:, : Np // 2] = rng.uniform(1.0, 1.2, (3, Np // 2))  # cluster
-    pts[:, -5:] = np.nextafter(2 * np.pi, 0)
-    C = 2
-    if dtype == np.complex128:
-        v = rng.standard_normal((C, Np)) + 1j * rng.standard_normal((C, Np))
-    else:
-        v = rng.standard_normal((C, Np))
-    kw = dict(m=4, sigma=1.5, spread_method="blocked", interpret=True,
-              ntransforms=C, block_dims=(16, 16, 24))
-    outs = {}
-    for layout in ("packed", "slots"):
-        p = nufft.PlanNUFFT(dtype, (32, 32, 32), layout=layout, **kw)
-        p = nufft.set_points(p, pts)
-        u = np.asarray(nufft.exec_type1(p, v.astype(dtype)))
-        v2 = np.asarray(nufft.exec_type2(p, u))
-        outs[layout] = (u, v2)
-    np.testing.assert_allclose(outs["packed"][0], outs["slots"][0], rtol=1e-10)
-    np.testing.assert_allclose(outs["packed"][1], outs["slots"][1], rtol=1e-10)
+def test_blocked_sorted_state(rng):
+    """set_points bin-sorts: block ranges tile the sorted points, every
+    sorted point lies in its range's block, and sort_perm is a
+    permutation."""
+    shape = (24, 20, 16)
+    pts, _ = _make_inputs(shape, np.complex64, 1, 900, rng)
+    plan = nufft.set_points(_blocked(np.complex64, shape, sigma=2.0), pts)
+    pst = np.asarray(plan.pstarts)
+    cells = np.asarray(plan.cells)
+    assert pst[0] == 0 and pst[-1] == 900 and np.all(np.diff(pst) >= 0)
+    nb = plan.num_blocks
+    bid = np.zeros(900, np.int64)
+    for d in range(3):
+        bid = bid * nb[d] + cells[d] // plan.block_dims[d]
+    owner = np.searchsorted(pst, np.arange(900), side="right") - 1
+    np.testing.assert_array_equal(bid, owner)
+    np.testing.assert_array_equal(np.sort(np.asarray(plan.sort_perm)),
+                                  np.arange(900))
 
 
-@pytest.mark.parametrize("batch", [256, 512, "auto"])
-def test_blocked_large_and_auto_batch(rng, batch):
-    """Large point batches (the high-density per-batch-overhead knob) and the
-    'auto' batch search must be output-equivalent to the reference path with
-    the 3D z-form kernels + windowed accumulation engaged."""
-    shape = (16, 16, 16)
-    Np = 3000  # rho ~ 0.7: windows engage, multiple batches per block
-    pts, v = _make_inputs(shape, np.complex128, 1, Np, rng)
-    pts[:, :600] = rng.uniform(0.5, 0.8, (3, 600))  # dense cluster
-    ref = nufft.PlanNUFFT(np.complex128, shape, m=4, sigma=1.5)
-    blk = nufft.PlanNUFFT(
-        np.complex128, shape, m=4, sigma=1.5, spread_method="blocked",
-        interpret=True, fft_method="matmul", fft_variant="pruned",
-        batch_size=batch, np_hint=Np,
-    )
-    assert blk.batch_size in (128, 256, 512)
-    u_ref, v2_ref = _roundtrip(ref, pts, v)
-    u_blk, v2_blk = _roundtrip(blk, pts, v)
-    assert np.abs(u_blk - u_ref).max() / np.abs(u_ref).max() < 1e-12
-    assert np.abs(v2_blk - v2_ref).max() / np.abs(v2_ref).max() < 1e-12
+def test_blocked_rejects_64bit():
+    with pytest.raises(ValueError, match="float32"):
+        nufft.PlanNUFFT(np.complex128, (16, 16), spread_method="blocked",
+                        interpret=True)
 
 
-def test_value_permute_sort_vs_gather(rng):
-    """The payload-sort value permutation (value_permute='sort') must be
-    output-identical to the gather engine on identical inputs, including
-    tail-padding lanes (Np not a multiple of the batch size)."""
-    shape = (16, 16, 16)
-    Np = 1111  # deliberately not P-aligned
-    pts, v = _make_inputs(shape, np.complex128, 1, Np, rng)
-    outs = {}
-    for vp_mode in ("gather", "sort"):
-        p = nufft.PlanNUFFT(
-            np.complex128, shape, m=4, sigma=1.5, spread_method="blocked",
-            interpret=True, fft_method="matmul", fft_variant="pruned",
-            value_permute=vp_mode, np_hint=Np,
-        )
-        outs[vp_mode] = _roundtrip(p, pts, v)
-    np.testing.assert_array_equal(outs["gather"][0], outs["sort"][0])
-    np.testing.assert_array_equal(outs["gather"][1], outs["sort"][1])
+def test_blocked_jit_cache_reuse(rng):
+    """A fresh plan with the same configuration and point count hits the
+    compiled spread (static metadata is hashable and stable)."""
+    from nonuniformffts_tpu.execution import _exec_type1_ch_impl
 
+    shape = (16, 16)
 
-def test_slots_layout_dim1_window(rng):
-    """The slots layout's dim-1 sub-sort + per-batch window metadata
-    (slot_layout sub_ly/window_y — used by the routed spatial path) must be
-    output-equivalent to the reference path with all window tiers engaged."""
-    shape = (24, 24, 24)
-    Np = 6000
-    pts, v = _make_inputs(shape, np.complex128, 1, Np, rng)
-    pts[:, : Np // 2] = rng.uniform(1.0, 1.5, (3, Np // 2))  # dense cluster
-    ref = nufft.PlanNUFFT(np.complex128, shape, m=4, sigma=1.5)
-    blk = nufft.PlanNUFFT(
-        np.complex128, shape, m=4, sigma=1.5, spread_method="blocked",
-        interpret=True, fft_method="matmul", fft_variant="pruned",
-        layout="slots", block_dims=(12, 12, 18), window_rows=12,
-        window_rows_y=16, np_hint=Np,
-    )
-    assert blk.kernel_form == "z" and blk.window_rows_y == 16
-    pb = nufft.set_points(blk, pts)
-    r1 = np.asarray(pb.batch_r1)
-    assert (r1 >= 0).any(), "dim-1 window never engaged"
-    assert (r1 < 0).any(), "fallback tier never engaged"
-    u_ref, v2_ref = _roundtrip(ref, pts, v)
-    u_blk, v2_blk = _roundtrip(blk, pts, v)
-    assert np.abs(u_blk - u_ref).max() / np.abs(u_ref).max() < 1e-12
-    assert np.abs(v2_blk - v2_ref).max() / np.abs(v2_ref).max() < 1e-12
+    def run():
+        pts, v = _make_inputs(shape, np.complex64, 1, 128, rng)
+        plan = nufft.set_points(_blocked(np.complex64, shape), pts)
+        jax.block_until_ready(nufft.exec_type1(plan, v))
 
-
-def test_precision_double_path(rng):
-    """precision='double' (double-single DFT accumulation + compensated
-    Horner, the high-accuracy device path) must run end-to-end on the
-    blocked pipeline and match the f64 reference path within the f32 data
-    budget.  (Its accuracy GAIN only manifests on bf16-pass TPU matmuls —
-    certified on device by scripts/accuracy_device.py; this pins the code
-    path's correctness.)"""
-    shape = (16, 16, 16)
-    Np = 2000
-    pts64, v64 = _make_inputs(shape, np.complex128, 1, Np, rng)
-    pts = pts64.astype(np.float32)
-    v = v64.astype(np.complex64)
-    ref = nufft.PlanNUFFT(np.complex128, shape, m=6, sigma=2.0)
-    u_ref, _ = _roundtrip(ref, pts.astype(np.float64), v.astype(np.complex128))
-    for prec in ("highest", "double"):
-        blk = nufft.PlanNUFFT(
-            np.complex64, shape, m=6, sigma=2.0, spread_method="blocked",
-            interpret=True, fft_method="matmul", precision=prec, np_hint=Np,
-        )
-        if prec == "double":
-            assert blk.kernel_form == "yz"  # compensated drivers wrap each axis
-        pb = nufft.set_points(blk, pts)
-        u = np.asarray(nufft.exec_type1(pb, v))
-        err = np.abs(u - u_ref).max() / np.abs(u_ref).max()
-        assert err < 5e-6, (prec, err)  # f32 data quantisation budget
-        v2 = np.asarray(nufft.exec_type2(pb, u.astype(np.complex64)))
-        assert np.all(np.isfinite(v2))
-
-
-def test_kernel_precision_fxp(rng):
-    """kernel_precision='fxp' (three-limb int8 fixed-point contractions,
-    blocked.py:_fxp_dot) must run end-to-end through both transform types
-    and stay within its documented error budget: the int8 quantisation adds
-    ~1e-7..1e-6 relative to the f32 path (measured 3.2e-6 vs 1.37e-6 at the
-    device bench point), so against an f64 oracle at m=4 the budget is the
-    f32 budget with ~3x headroom."""
-    shape = (16, 16, 16)
-    Np = 2000
-    pts64, v64 = _make_inputs(shape, np.complex128, 1, Np, rng)
-    pts = pts64.astype(np.float32)
-    v = v64.astype(np.complex64)
-    ref = nufft.PlanNUFFT(np.complex128, shape, m=4, sigma=1.5)
-    u_ref, v2_ref = _roundtrip(
-        ref, pts.astype(np.float64), v.astype(np.complex128)
-    )
-    blk = nufft.PlanNUFFT(
-        np.complex64, shape, m=4, sigma=1.5, spread_method="blocked",
-        interpret=True, fft_method="matmul", kernel_precision="fxp",
-        np_hint=Np,
-    )
-    pb = nufft.set_points(blk, pts)
-    u = np.asarray(nufft.exec_type1(pb, v))
-    err1 = np.abs(u - u_ref).max() / np.abs(u_ref).max()
-    v2 = np.asarray(nufft.exec_type2(pb, u_ref.astype(np.complex64)))
-    err2 = np.abs(v2 - v2_ref).max() / np.abs(v2_ref).max()
-    # m=4 sigma=1.5 intrinsic kernel error ~1e-6; fxp quantisation budget
-    # on top (see docs/design.md).  The f32 path passes at ~2e-6 here.
-    assert err1 < 2e-5, err1
-    assert err2 < 2e-5, err2
-
-
-def test_octave_wt_matrix_build_exact(rng):
-    """The octave-placement wt-matrix build (used automatically for tall
-    pd) must equal the per-tap compare-select form EXACTLY, including the
-    left-halo wrap lanes (lx < m-1 -> tail rows B + 2m - 1 + j)."""
-    import jax
-    import jax.numpy as jnp
-
-    from nonuniformffts_tpu.ops.pallas import common
-
-    for (m, B, pd, P) in [
-        (4, 96, 104, 128), (4, 96, 104, 256), (6, 48, 64, 128),
-        (8, 96, 112, 128), (2, 64, 72, 128), (5, 88, 104, 128),
-    ]:
-        two_m = 2 * m
-        vals = jnp.asarray(rng.standard_normal((two_m, P)).astype(np.float32))
-        c = jnp.asarray(rng.integers(0, B, (1, P)).astype(np.int32))
-        # Force wrap lanes (lx < m-1) into the batch.
-        c = c.at[0, :8].set(jnp.arange(8, dtype=jnp.int32) % max(m - 1, 1))
-        lx = c
-        iota = jax.lax.broadcasted_iota(jnp.int32, (pd, P), 0)
-        w_ref = jnp.zeros((pd, P), dtype=vals.dtype)
-        for t in range(two_m):
-            v = jax.lax.slice_in_dim(vals, t, t + 1, axis=0)
-            j = lx - (m - 1) + t
-            i = jnp.where(j < 0, j + B + 2 * m - 1, j)
-            w_ref = jnp.where(iota == i, v, w_ref)
-        w_oct = common._build_wt_matrix_octave(vals, c, 0, m, pd, P, B)
-        assert float(jnp.abs(w_oct - w_ref).max()) == 0.0, (m, B, pd, P)
-
-    # m = 10 (the documented maximum) reaches first-tap octave q = -2,
-    # which the octave strip wrap cannot express: the public dispatch must
-    # take the per-tap path and still be exact (advisor finding, round 3).
-    for (m, B, pd, P) in [(10, 96, 120, 128), (10, 48, 72, 128)]:
-        two_m = 2 * m
-        vals = jnp.asarray(rng.standard_normal((two_m, P)).astype(np.float32))
-        c = jnp.asarray(rng.integers(0, B, (1, P)).astype(np.int32))
-        c = c.at[0, :12].set(jnp.arange(12, dtype=jnp.int32) % (m - 1))
-        lx = c
-        iota = jax.lax.broadcasted_iota(jnp.int32, (pd, P), 0)
-        w_ref = jnp.zeros((pd, P), dtype=vals.dtype)
-        for t in range(two_m):
-            v = jax.lax.slice_in_dim(vals, t, t + 1, axis=0)
-            j = lx - (m - 1) + t
-            i = jnp.where(j < 0, j + B + 2 * m - 1, j)
-            w_ref = jnp.where(iota == i, v, w_ref)
-        w = common.build_wt_matrix(vals, c, 0, m, pd, P, B)
-        assert float(jnp.abs(w - w_ref).max()) == 0.0, (m, B, pd, P)
-
-
-def test_backward_fold_gate_matches(rng):
-    """backward_dft_blockform_z with the static fold-vs-prep gate
-    (_use_fold_bwd) must match the always-folded contraction: the two
-    paths are the same DFT, the gate only changes which factor set is
-    contracted."""
-    import jax.numpy as jnp
-
-    from nonuniformffts_tpu.ops import matmul_fft as mf
-
-    p = nufft.PlanNUFFT(
-        np.complex64, (64, 64, 64), m=4, sigma=1.5,
-        spread_method="blocked", fft_method="matmul",
-    )
-    axes = p.fft_axes_block
-    assert any(ax.fold is not None for ax in axes)
-    spec = jnp.asarray(
-        rng.standard_normal(
-            (1, 2) + tuple(a.pcos_t.shape[-1] for a in axes)
-        ).astype(np.float32)
-    )
-    out_gated = mf.backward_dft_blockform_z(spec, axes, real=False, prec="highest")
-    orig = mf._use_fold_bwd
-    try:
-        mf._use_fold_bwd = lambda ax: ax.fold is not None
-        out_fold = mf.backward_dft_blockform_z(spec, axes, real=False, prec="highest")
-    finally:
-        mf._use_fold_bwd = orig
-    d = float(jnp.abs(out_gated - out_fold).max() / jnp.abs(out_fold).max())
-    assert d < 2e-6, d
-
-
-def test_sub_m_middle_block_dim(rng):
-    """Middle block dims below the kernel half-support are legal on the
-    z-form/blockform path (the halo lives in the DFT factor row map, which
-    handles any B >= 1); results must match the reference path."""
-    shape = (16, 16, 16)
-    Np = 1500
-    pts64, v64 = _make_inputs(shape, np.complex128, 1, Np, rng)
-    pts = pts64.astype(np.float32)
-    v = v64.astype(np.complex64)
-    ref = nufft.PlanNUFFT(np.complex64, shape, m=4, sigma=1.5)
-    u_ref, _ = _roundtrip(ref, pts, v)
-    blk = nufft.PlanNUFFT(
-        np.complex64, shape, m=4, sigma=1.5, spread_method="blocked",
-        interpret=True, fft_method="matmul", np_hint=Np,
-        block_dims=(8, 1, 24),
-    )
-    pb = nufft.set_points(blk, pts)
-    u = np.asarray(nufft.exec_type1(pb, v))
-    err = np.abs(u - u_ref).max() / np.abs(u_ref).max()
-    assert err < 1e-5, err
-
-
-def test_auto_batch_smem_escalation():
-    """At extreme density the per-batch window metadata (one SMEM word per
-    batch) must not overflow the 1 MiB scalar memory: the auto search
-    escalates the batch size past its measured-optimal 128/256 candidates."""
-    from nonuniformffts_tpu.blocking import SMEM_BUDGET_BYTES, smem_bytes
-
-    kw = dict(
-        m=4, sigma=1.5, spread_method="blocked", fft_method="matmul",
-        interpret=True,
-    )
-    p = nufft.PlanNUFFT(
-        np.complex64, (256, 256, 256), np_hint=167_772_160, **kw
-    )
-    assert p.batch_size >= 512
-    nblocks = int(
-        np.prod([n // b for n, b in zip(p.shape_over, p.block_dims)])
-    )
-    assert smem_bytes(167_772_160, nblocks, p.batch_size) <= SMEM_BUDGET_BYTES
-    # Moderate densities keep the measured-optimal small batches.
-    p1 = nufft.PlanNUFFT(
-        np.complex64, (256, 256, 256), np_hint=1_000_000, **kw
-    )
-    assert p1.batch_size <= 256
-
-
-def test_split_pv_spread_matches(rng, monkeypatch):
-    """Huge-Np plans DMA points and values as separate operands (the
-    pts++vals concat temp OOMs HBM at rho=10, 167.8M points).  Force the
-    split at a small size and check both spread paths agree exactly."""
-    from nonuniformffts_tpu.ops.pallas import blocked
-
-    shape, Np = (16, 12, 20), 3000
-    pts, v = _make_inputs(shape, np.complex64, 1, Np, rng)
-    kw = dict(
-        m=4, sigma=2.0, spread_method="blocked", fft_method="matmul",
-        interpret=True, np_hint=Np,
-    )
-    plan = nufft.set_points(nufft.PlanNUFFT(np.complex64, shape, **kw), pts)
-    assert plan.kernel_form == "z"
-    # Call the spread launcher directly (untraced) so the monkeypatched
-    # threshold is read at trace time — exec_type1's jit cache would
-    # otherwise return the concat-path executable for the same plan.
-    vp = v[None] if v.ndim == 1 else v
-    buf_concat = np.asarray(
-        blocked.spread_blocked(plan, vp, raw_output=True)
-    )
-    monkeypatch.setattr(blocked, "PV_SPLIT_BYTES", 0)
-    buf_split = np.asarray(
-        blocked.spread_blocked(plan, vp, raw_output=True)
-    )
-    np.testing.assert_array_equal(buf_concat, buf_split)
-
-
-def test_huge_plan_unpadded_interp_out_matches(rng, monkeypatch):
-    '''Huge plans keep the interp HBM result array at its true row count
-    (nrows) instead of the 8-row DMA granule (~3.9 GB of never-read zeros
-    at rho=10).  Force the small-threshold path and check the interp stage
-    agrees exactly with the padded path.'''
-    from nonuniformffts_tpu.ops.pallas import blocked
-    from nonuniformffts_tpu.execution import (
-        _t2_interp_stage,
-        _t2_pad_stage,
-        _t2_fft_stage,
-    )
-    from nonuniformffts_tpu.callbacks import NUFFTCallbacks
-    import jax.numpy as jnp
-
-    shape, Np = (16, 12, 20), 3000
-    pts, v = _make_inputs(shape, np.complex64, 1, Np, rng)
-    kw = dict(
-        m=4, sigma=2.0, spread_method="blocked", fft_method="matmul",
-        interpret=True, np_hint=Np,
-    )
-    plan = nufft.set_points(nufft.PlanNUFFT(np.complex64, shape, **kw), pts)
-    assert plan.kernel_form == "z"
-    vp = v[None] if v.ndim == 1 else v
-    u = np.asarray(nufft.exec_type1(plan, vp))
-    uhat_ch = np.stack([u.real, u.imag], axis=1)
-    spec = _t2_pad_stage(plan, jnp.asarray(uhat_ch), NUFFTCallbacks())
-    halos = _t2_fft_stage(plan, spec)
-    out_pad = np.asarray(_t2_interp_stage(plan, halos))
-    monkeypatch.setattr(blocked, "PV_SPLIT_BYTES", 0)
-    out_unpad = np.asarray(_t2_interp_stage(plan, halos))
-    np.testing.assert_array_equal(out_pad, out_unpad)
+    run()
+    size0 = _exec_type1_ch_impl._cache_size()
+    run()
+    assert _exec_type1_ch_impl._cache_size() == size0

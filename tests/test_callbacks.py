@@ -90,25 +90,19 @@ def test_inputs_never_modified(setup):
     np.testing.assert_array_equal(v, v0)
 
 
-def test_callbacks_ds_plans(rng):
-    """Callbacks on extended-precision (ds) plans run host-side in f64 with
-    reference fusion semantics (the reference supports callbacks on every
-    plan type including f64, src/plan.jl:62-164).  Fused must equal
-    manually applying the same ops around a plain ds transform, at ds
-    accuracy."""
+def test_callbacks_f64_plans(rng):
+    """Callbacks on complex128 plans keep f64 accuracy with reference
+    fusion semantics (the reference supports callbacks on every plan type
+    including f64, src/plan.jl:62-164).  Fused must equal manually applying
+    the same ops around a plain transform."""
     shape, Np = (24, 20), 400
     pts = rng.uniform(0, 2 * np.pi, (2, Np))
     v = random_values(rng, np.complex128, Np)
     weights = rng.uniform(0.5, 1.5, Np)
 
     plan = nufft.set_points(
-        nufft.PlanNUFFT(
-            np.complex128, shape, m=6, sigma=2.0, precision="double",
-            spread_method="blocked", interpret=True, np_hint=Np,
-        ),
-        pts,
+        nufft.PlanNUFFT(np.complex128, shape, m=6, sigma=2.0), pts,
     )
-    assert plan.ds
     w_j = jnp.asarray(weights)
     cb_nu = nufft.NUFFTCallbacks(
         nonuniform=lambda vs, n: tuple(x * w_j[n] for x in vs)

@@ -1,11 +1,11 @@
 """Points-chunked execution (chunked.py) vs the unchunked blocked path.
 
-The chunked mode exists for the rho=10 benchmark scale (167.8M points,
-reference protocol benchmark/CPU+CUDA/run_benchmarks.jl:394-404) where the
-sort temporaries of a single-plan execution exceed 16 GB HBM.  Correctness
-is scale-free: these tests pin output equality against the unchunked plan on
-small problems (interpret-mode Pallas on CPU), including the zero-padding
-path when Np is not a multiple of nchunks.
+The chunked mode bounds the per-point temporaries of very large point sets
+(the rho=10 benchmark scale, 167.8M points, reference protocol
+benchmark/CPU+CUDA/run_benchmarks.jl:394-404).  Correctness is scale-free:
+these tests pin output equality against the unchunked plan on small problems
+(interpret-mode Pallas on CPU), including the zero-padding path when Np is
+not a multiple of nchunks.
 """
 
 import numpy as np
@@ -93,11 +93,3 @@ def test_chunked_requires_set_points():
     )
     with pytest.raises(RuntimeError, match="points not set"):
         nufft.exec_type1_chunked(cpl, np.zeros(8, np.complex64))
-
-
-def test_chunked_rejects_ds():
-    with pytest.raises(NotImplementedError, match="extended-precision"):
-        nufft.ChunkedPlanNUFFT(
-            np.complex128, (16, 16, 16), nchunks=2, precision="double",
-            spread_method="blocked", interpret=True,
-        )

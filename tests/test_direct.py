@@ -127,18 +127,6 @@ def test_direct_callbacks(rng):
     assert np.abs(u_cb - u_2x).max() / np.abs(u_2x).max() < 1e-6
 
 
-def test_direct_mac_crossover_model():
-    from nonuniformffts_tpu.ops.direct import blocked_dft_macs, direct_macs
-
-    # At the bench's N=256^3 geometry the crossover sits near Np ~ 3900
-    # (PROFILE.md round-5 low-density analysis): rho=1e-4 (1678 points)
-    # must pick direct, rho=1e-3 (16777) must not.
-    spec = (256, 256, 256)
-    over = (384, 384, 384)
-    assert 2 * direct_macs(1678, spec) < 2 * blocked_dft_macs(over)
-    assert 2 * direct_macs(16777, spec) > 2 * blocked_dft_macs(over)
-
-
 def test_direct_rejects_sort_points():
     with pytest.raises(ValueError, match="sort_points"):
         nufft.PlanNUFFT(np.complex64, (16, 16), spread_method="direct",

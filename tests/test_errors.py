@@ -67,51 +67,21 @@ def test_wrong_dimension_count():
         nufft.PlanNUFFT(np.complex128, (8, 8, 8, 8))
 
 
-def test_window_rows_kwarg_validation():
-    """window_rows plan kwarg: 0/None disables, explicit values round up to
-    the 8-sublane granule, >= pd0 disables (advisor round-1 findings)."""
-    import nonuniformffts_tpu as nufft
-
-    kw = dict(m=4, sigma=1.5, spread_method="blocked", interpret=True)
-    p0 = nufft.PlanNUFFT(np.complex64, (64, 64), window_rows=0, **kw)
-    assert p0.window_rows is None
-    p_none = nufft.PlanNUFFT(np.complex64, (64, 64), window_rows=None, **kw)
-    assert p_none.window_rows is None
-    p13 = nufft.PlanNUFFT(np.complex64, (64, 64), window_rows=13, **kw)
-    assert p13.window_rows in (16, None)  # rounded up (or pd0 too small)
-    if p13.window_rows is not None:
-        from nonuniformffts_tpu.ops.pallas.common import padded_block_dims
-
-        assert p13.window_rows < padded_block_dims(p13.block_dims, p13.m)[0]
+def test_removed_options_rejected():
+    """Options that selected kernel variants of earlier platforms are gone;
+    passing one is an error, not a silent no-op."""
+    for kw in ({"fft_method": "matmul"}, {"precision": "double"},
+               {"layout": "slots"}, {"batch_size": 128}):
+        with pytest.raises(TypeError):
+            nufft.PlanNUFFT(np.complex64, (16, 16), **kw)
 
 
-def test_spatial_engine_variant_validation():
-    import jax
+def test_interpret_refused_on_gpu_backend(monkeypatch):
+    """interpret=True is a test hook for hosts without a GPU; on a GPU the
+    kernel must run compiled."""
+    from nonuniformffts_tpu import backend
 
-    from nonuniformffts_tpu.parallel.spatial import SpatialNUFFT
-
-    devs = jax.devices("cpu")[:2]
-    mesh = jax.sharding.Mesh(np.array(devs), ("x",))
-    # The split engine cannot run from pruned factors (truncation is baked
-    # into the matrices and does not interleave with its collective
-    # transposes).
-    with pytest.raises(ValueError, match="split"):
-        SpatialNUFFT(
-            np.complex64, (32, 32), mesh=mesh, engine="split",
-            fft_variant="pruned", interpret=True,
-        )
-    # The blockform engine needs the z-form kernels; precision='double'
-    # pins the yz form.
-    with pytest.raises(ValueError, match="blockform"):
-        SpatialNUFFT(
-            np.complex64, (32, 32), mesh=mesh, engine="blockform",
-            precision="double", interpret=True,
-        )
-    with pytest.raises(ValueError, match="engine"):
-        SpatialNUFFT(np.complex64, (32, 32), mesh=mesh, engine="bogus")
-    # fft_variant='pruned' without an engine pin now selects blockform.
-    sp = SpatialNUFFT(
-        np.complex64, (32, 32), mesh=mesh, fft_variant="pruned",
-        interpret=True,
-    )
-    assert sp.engine == "blockform"
+    monkeypatch.setattr(backend, "on_gpu", lambda: True)
+    with pytest.raises(ValueError, match="interpret"):
+        nufft.PlanNUFFT(np.complex64, (16, 16), spread_method="blocked",
+                        interpret=True)

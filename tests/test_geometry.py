@@ -1,72 +1,38 @@
 """Geometry calculator (C9) + observability (C22) tests.
 
-The TPU analogue of the reference's shared-memory geometry arithmetic
-(src/gpu_common.jl:19-92) and its misconfiguration warnings (:66-77), plus
-the per-stage Timer (reference: TimerOutputs on the plan, src/plan.jl:282).
+The blocked kernel's block geometry (the counterpart of the reference's
+shared-memory geometry arithmetic, src/gpu_common.jl:19-92), the plan's
+method resolution, plus the per-stage Timer (reference: TimerOutputs on
+the plan, src/plan.jl:282).
 """
-
-import warnings
 
 import numpy as np
 import pytest
 
 import nonuniformffts_tpu as nufft
-from nonuniformffts_tpu.blocking import (
-    VMEM_BUDGET_BYTES,
-    choose_geometry,
-    geometry_cost,
-    num_slots,
+from nonuniformffts_tpu.ops.pallas.spread import (
+    MIN_PADDED,
+    choose_block_dims,
+    padded_extent,
 )
 from nonuniformffts_tpu.utils.timer import Timer
 
 
-def test_choose_geometry_divides_and_tiling():
-    shape_over = (384, 384, 384)
-    bd, w = choose_geometry(shape_over, 4, cr=2, np_hint=1_000_000)
+@pytest.mark.parametrize("shape_over", [(384, 384, 384), (96, 96, 96),
+                                        (512, 512), (36, 48, 60)])
+def test_choose_block_dims_divides(shape_over):
+    bd = choose_block_dims(shape_over, 4)
     assert all(n % b == 0 for n, b in zip(shape_over, bd))
-    # Lane utilisation: the last block dim is kept wide (>= 64 or full axis).
-    assert bd[-1] >= 64 or bd[-1] == shape_over[-1]
-    assert not w
-    _, vmem = geometry_cost(shape_over, bd, 4, 2, 1_000_000, 128)
-    assert vmem <= VMEM_BUDGET_BYTES
+    assert all(b >= 4 for b in bd)
 
 
-def test_choose_geometry_small_grid_full_axis():
-    # 96 has no divisor >= 64 other than the full axis itself.
-    bd, _ = choose_geometry((96, 96, 96), 4, cr=2, np_hint=100_000)
-    assert bd[-1] == 96
-
-
-def test_choose_geometry_density_adapts():
-    lo, _ = choose_geometry((384, 384, 384), 4, cr=2, np_hint=50_000)
-    hi, _ = choose_geometry((384, 384, 384), 4, cr=2, np_hint=16_777_216)
-    nblocks = lambda bd: np.prod([384 // b for b in bd])
-    # Fewer blocks at low density (padding waste), more at high density.
-    assert nblocks(lo) <= nblocks(hi)
-
-
-def test_choose_geometry_z_form_large_batches_feasible():
-    # The z-form kernels have no (yz, P) qt build, so their VMEM working set
-    # must be modelled from the z buffers: with the yz formula applied to
-    # z-form plans, every candidate was rejected at batch_size >= 256 and
-    # the search fell back to minimal blocks (round-2 device log).
-    for batch in (256, 512):
-        bd, w = choose_geometry(
-            (384, 384, 384), 4, cr=2, np_hint=16_777_216,
-            batch_size=batch, n_keep=(256,) * 3, form="z",
-        )
-        assert not any("VMEM" in x for x in w), (batch, w)
-        _, vmem = geometry_cost(
-            (384, 384, 384), bd, 4, 2, 16_777_216, batch,
-            n_keep=(256,) * 3, form="z",
-        )
-        assert vmem <= VMEM_BUDGET_BYTES
-
-
-def test_choose_geometry_warns_when_infeasible():
-    # An absurd CR makes every candidate blow the VMEM budget.
-    bd, w = choose_geometry((384, 384, 384), 4, cr=4096, np_hint=1_000_000)
-    assert any("VMEM" in x for x in w)
+def test_choose_block_dims_fills_smallest_padded_block():
+    # m = 4: core + halo (B + 7) fits the 16-wide padded block at B = 8.
+    assert choose_block_dims((384, 384, 384), 4) == (8, 8, 8)
+    assert padded_extent(8, 4) == MIN_PADDED
+    # m = 8 needs B + 15 rows: the padded extent doubles to 32.
+    assert choose_block_dims((512,), 8) == (16,)
+    assert padded_extent(16, 8) == 32
 
 
 def test_plan_rejects_bad_block_dims():
@@ -80,28 +46,16 @@ def test_plan_rejects_bad_block_dims():
             np.complex64, (256, 256, 256), m=4, sigma=1.5,
             spread_method="blocked", block_dims=(2, 24, 128),
         )
-    # Small blocks are fine (no Mosaic relayout-tiling restriction since the
-    # block-form DFT absorbed the relayout).
-    nufft.PlanNUFFT(
+    with pytest.raises(ValueError, match="one entry per dimension"):
+        nufft.PlanNUFFT(
+            np.complex64, (64, 64, 64), m=4, sigma=1.5,
+            spread_method="blocked", block_dims=(16, 16),
+        )
+    p = nufft.PlanNUFFT(
         np.complex64, (64, 64, 64), m=4, sigma=1.5,
         spread_method="blocked", block_dims=(16, 16, 16), interpret=True,
-        batch_size=32,
     )
-
-
-def test_set_points_waste_warning(rng):
-    plan = nufft.PlanNUFFT(
-        np.complex64, (64, 64), m=4, sigma=1.5, spread_method="blocked",
-        interpret=True, block_dims=(16, 16), batch_size=32,
-    )
-    pts = rng.uniform(0, 2 * np.pi, (2, 20)).astype(np.float32)
-    with pytest.warns(UserWarning, match="padding waste"):
-        nufft.set_points(plan, pts)
-
-
-def test_num_slots_bound():
-    assert num_slots(1000, 10, 128) >= 1000
-    assert num_slots(1000, 10, 128) % 128 == 0
+    assert p.block_dims == (16, 16, 16)
 
 
 def test_timer_records_stages(rng):
@@ -136,13 +90,13 @@ def test_timer_matches_untimed_results(rng):
 def test_plan_repr_geometry(rng):
     plan = nufft.PlanNUFFT(
         np.complex64, (64, 64, 64), m=4, sigma=1.5, spread_method="blocked",
-        interpret=True, block_dims=(16, 16, 16), batch_size=128,
+        interpret=True, block_dims=(16, 16, 16),
     )
     r = repr(plan)
-    assert "blocked geometry" in r and "blocks" in r
-    pts = rng.uniform(0, 2 * np.pi, (3, 50_000)).astype(np.float32)
+    assert "blocked geometry: 216 blocks" in r
+    pts = rng.uniform(0, 2 * np.pi, (3, 5_000)).astype(np.float32)
     plan = nufft.set_points(plan, pts)
-    assert "padding waste" in repr(plan)
+    assert "points set: 5000" in repr(plan)
 
 
 def test_sort_points_reference_path(rng):
@@ -164,14 +118,19 @@ def test_sort_points_reference_path(rng):
     assert p1.point_perm is not None and p0.point_perm is None
 
 
-def test_auto_method_resolves():
-    # On the CPU test backend 'auto' resolves to the reference path.
+def test_auto_method_resolves(rng):
+    # On the CPU test backend 'auto' resolves to the reference path, at
+    # plan time with np_hint and at set_points otherwise.
     plan = nufft.PlanNUFFT(np.complex64, (32, 32))
-    assert plan.spread_method == "reference"
+    assert plan.spread_method == "auto"
+    pts = rng.uniform(0, 2 * np.pi, (2, 5_000)).astype(np.float32)
+    assert nufft.set_points(plan, pts).spread_method == "reference"
+    hinted = nufft.PlanNUFFT(np.complex64, (32, 32), np_hint=5_000)
+    assert hinted.spread_method == "reference"
 
 
 def test_exec_no_recompilation_across_calls(rng):
-    """TPU analogue of the reference's JET type-stability checks
+    """Analogue of the reference's JET type-stability checks
     (test/accuracy.jl:133-141): repeated execution with fresh data and a
     fresh same-config plan must hit the jit cache (static plan metadata is
     hashable and stable; no retraces)."""
@@ -188,36 +147,3 @@ def test_exec_no_recompilation_across_calls(rng):
     run()
     run()
     assert _exec_type1_ch_impl._cache_size() == size0
-
-
-def test_packed_layout_cell_rows_match_key_decode():
-    # The trailing rows of the packed point layout carry pre-decoded local
-    # cells (set_points hoists the kernels' per-batch key divmod — see
-    # blocking.packed_layout); they must equal the divmod of the sorted key
-    # in every lane, including the sentinel-key tail padding.
-    import jax
-    import jax.numpy as jnp
-
-    from nonuniformffts_tpu.blocking import packed_layout
-
-    rng = np.random.default_rng(3)
-    shape = (32, 24, 48)
-    Np = 1000  # not a multiple of P=128: exercises the sentinel tail
-    plan = nufft.PlanNUFFT(
-        np.complex64, shape, m=4, sigma=1.5, spread_method="blocked",
-        fft_method="matmul", np_hint=Np, interpret=True,
-    )
-    pts = jnp.asarray(rng.uniform(0, 2 * np.pi, (3, Np)).astype(np.float32))
-    pts_rows, *_ = packed_layout(
-        plan.kernel_data, plan.block_dims, pts, plan.batch_size
-    )
-    D = 3
-    key = jax.lax.bitcast_convert_type(pts_rows[0], jnp.int32)
-    sub = int(np.prod(plan.block_dims))
-    rem = np.asarray(key) % sub
-    for d in range(D):
-        stride = int(np.prod(plan.block_dims[d + 1:]))
-        expect = rem // stride
-        rem = rem % stride
-        got = np.asarray(pts_rows[2 + D + d]).astype(np.int32)
-        np.testing.assert_array_equal(got, expect)

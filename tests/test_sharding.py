@@ -1,8 +1,8 @@
-"""Multi-chip sharded execution on a virtual 8-device CPU mesh.
+"""Multi-device sharded execution on a virtual 8-device CPU mesh.
 
-The reference has no distributed mode; this validates our TPU-native
-extension (parallel/sharded.py): point-parallel spreading with a psum grid
-merge must reproduce the single-device result exactly, and type-2 must be a
+The reference has no distributed mode; this validates our extension
+(parallel/sharded.py): point-parallel spreading with a psum grid merge must
+reproduce the single-device result exactly, and type-2 must be a
 zero-communication local gather.
 """
 
@@ -20,8 +20,9 @@ from nonuniformffts_tpu.parallel import (
 from nufft_test_utils import random_values
 
 
+@pytest.mark.parametrize("chunk_size", [None, 16])
 @pytest.mark.parametrize("dtype", [np.complex128, np.float64])
-def test_sharded_matches_single_device(dtype, rng):
+def test_sharded_matches_single_device(dtype, chunk_size, rng):
     assert len(jax.devices()) >= 8, "conftest must provide 8 virtual devices"
     mesh = make_mesh(8)
     shape = (24, 18)
@@ -29,7 +30,9 @@ def test_sharded_matches_single_device(dtype, rng):
     pts = rng.uniform(0, 2 * np.pi, (2, Np))
     v = random_values(rng, dtype, (1, Np))
 
-    plan = nufft.PlanNUFFT(dtype, shape, sigma=2.0, fft_method="xla")
+    # chunk_size=16 makes every device scan over stencil chunks.
+    plan = nufft.PlanNUFFT(dtype, shape, sigma=2.0, spread_method="reference",
+                           chunk_size=chunk_size)
     is_real = not np.issubdtype(np.dtype(dtype), np.complexfloating)
     v_ch = v if is_real else np.stack([v.real, v.imag], axis=1)
 
@@ -52,7 +55,8 @@ def test_sharded_is_actually_distributed(rng):
     """The compiled type-1 must contain a cross-device reduction (psum) and
     sharded point inputs."""
     mesh = make_mesh(8)
-    plan = nufft.PlanNUFFT(np.complex128, (16, 16), sigma=2.0, fft_method="xla")
+    plan = nufft.PlanNUFFT(np.complex128, (16, 16), sigma=2.0,
+                           spread_method="reference")
     pts = rng.uniform(0, 2 * np.pi, (2, 160))
     v = random_values(rng, np.complex128, (1, 160))
     v_ch = np.stack([v.real, v.imag], axis=1)

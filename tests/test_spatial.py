@@ -1,17 +1,14 @@
-"""Spatially-sharded multi-chip path vs the single-device library.
+"""Grid-sharded multi-device path vs the single-device library.
 
-Runs on the 8-virtual-device CPU mesh (conftest).  The acceptance criterion
-from the round-1 review: numerical equality with single-device execution at
-a grid that is *sharded* (not replicated) end to end — grid slabs per chip,
-point routing via all_to_all, ppermute halo exchange, distributed
-matmul-DFT with an all_to_all transpose.
+Runs on the 8-virtual-device CPU mesh (conftest): numerical equality with
+single-device execution at a grid that is *sharded* end to end — grid slabs
+per device, point routing via all_to_all, ppermute halo exchange, a
+distributed FFT with an all_to_all transpose.
 """
 
+import jax
 import numpy as np
 import pytest
-
-import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh
 
 import nonuniformffts_tpu as nufft
@@ -26,139 +23,96 @@ def make_mesh(n):
     return Mesh(np.asarray(jax.devices()[:n]), ("grid",))
 
 
-def _single_plan(dtype, shape, engine="blockform", **kw):
-    # The oracle uses the single-chip engine matching the spatial one
-    # ('blockform' -> pruned z-form factors, 'split' -> split factors) so
-    # the comparison is same-algorithm distributed-vs-single-device to
-    # roundoff (pruned-vs-split engine equivalence is covered separately in
-    # test_blocked.py).
-    return nufft.PlanNUFFT(
-        dtype, shape, m=4, sigma=1.5, spread_method="blocked",
-        interpret=True, fft_method="matmul",
-        fft_variant="pruned" if engine == "blockform" else "split", **kw,
+def _single(dtype, shape, pts, **kw):
+    return nufft.set_points(
+        nufft.PlanNUFFT(dtype, shape, spread_method="reference", **kw), pts
     )
+
+
+def _values(rng, dtype, C, Np):
+    if np.dtype(dtype).kind == "c":
+        return rng.standard_normal((C, 2, Np))
+    return rng.standard_normal((C, Np))
+
+
+def _check(sp, dtype, shape, pts, v_ch, **kw):
+    st = sp.set_points(pts)
+    u_sp = np.asarray(sp.exec_type1(st, v_ch))
+    ref = _single(dtype, shape, pts, **kw)
+    u_ref = np.asarray(exec_type1_channels(ref, v_ch))
+    np.testing.assert_allclose(u_sp, u_ref, rtol=1e-10, atol=1e-10)
+    v_sp = np.asarray(sp.exec_type2(st, u_ref))
+    v_ref = np.asarray(exec_type2_channels(ref, u_ref))
+    np.testing.assert_allclose(v_sp, v_ref, rtol=1e-10, atol=1e-10)
 
 
 @pytest.mark.parametrize("n_chips", [2, 4])
-@pytest.mark.parametrize("engine", ["auto", "split"])
-def test_type1_type2_match_single_device_complex(n_chips, engine, rng):
+@pytest.mark.parametrize("m", [4, 2])
+def test_type1_type2_match_single_device_complex(n_chips, m, rng):
     shape = (32, 32, 32)
     Np = 160 * n_chips
-    mesh = make_mesh(n_chips)
-    sp = SpatialNUFFT(
-        np.complex128, shape, mesh=mesh, m=4, sigma=1.5, interpret=True,
-        engine=engine,
-    )
-    assert sp.engine == ("blockform" if engine == "auto" else engine)
+    kw = dict(m=m, sigma=1.5)
+    sp = SpatialNUFFT(np.complex128, shape, mesh=make_mesh(n_chips), **kw)
     pts = rng.uniform(0, 2 * np.pi, (3, Np))
-    v_ch = rng.standard_normal((1, 2, Np))
-
-    st = sp.set_points(pts)
-    u_sp = np.asarray(sp.exec_type1(st, v_ch))
-
-    ref = nufft.set_points(
-        _single_plan(
-            np.complex128, shape, engine=sp.engine,
-            block_dims=sp.base.block_dims,
-        ),
-        pts,
-    )
-    u_ref = np.asarray(exec_type1_channels(ref, v_ch))
-    np.testing.assert_allclose(u_sp, u_ref, rtol=1e-10, atol=1e-12)
-
-    v_sp = np.asarray(sp.exec_type2(st, u_ref))
-    v_ref = np.asarray(exec_type2_channels(ref, u_ref))
-    np.testing.assert_allclose(v_sp, v_ref, rtol=1e-10, atol=1e-12)
+    _check(sp, np.complex128, shape, pts, _values(rng, np.complex128, 1, Np), **kw)
 
 
-@pytest.mark.parametrize("engine", ["auto", "split"])
-def test_real_data_path(engine, rng):
+@pytest.mark.parametrize("n_chips", [2, 4])
+def test_real_data_path(n_chips, rng):
     shape = (32, 32, 32)
-    n_chips = 4
-    Np = 128 * n_chips
-    mesh = make_mesh(n_chips)
-    sp = SpatialNUFFT(
-        np.float64, shape, mesh=mesh, m=4, sigma=1.5, interpret=True,
-        engine=engine,
-    )
+    Np = 150 * n_chips
+    kw = dict(m=4, sigma=1.5)
+    sp = SpatialNUFFT(np.float64, shape, mesh=make_mesh(n_chips), **kw)
     pts = rng.uniform(0, 2 * np.pi, (3, Np))
-    v = rng.standard_normal((1, Np))
-
-    st = sp.set_points(pts)
-    u_sp = np.asarray(sp.exec_type1(st, v))
-
-    ref = nufft.set_points(
-        _single_plan(
-            np.float64, shape, engine=sp.engine,
-            block_dims=sp.base.block_dims,
-        ),
-        pts,
-    )
-    u_ref = np.asarray(exec_type1_channels(ref, v))
-    np.testing.assert_allclose(u_sp, u_ref, rtol=1e-10, atol=1e-12)
-
-    v_sp = np.asarray(sp.exec_type2(st, u_ref))
-    v_ref = np.asarray(exec_type2_channels(ref, u_ref))
-    np.testing.assert_allclose(v_sp, v_ref, rtol=1e-10, atol=1e-12)
+    _check(sp, np.float64, shape, pts, _values(rng, np.float64, 1, Np), **kw)
 
 
 def test_2d(rng):
     shape = (32, 32)
-    n_chips = 4
-    Np = 100 * n_chips
-    mesh = make_mesh(n_chips)
-    sp = SpatialNUFFT(
-        np.complex128, shape, mesh=mesh, m=4, sigma=2.0, interpret=True,
-    )
+    Np = 400
+    kw = dict(m=4, sigma=2.0)
+    sp = SpatialNUFFT(np.complex128, shape, mesh=make_mesh(4), **kw)
     pts = rng.uniform(0, 2 * np.pi, (2, Np))
-    v_ch = rng.standard_normal((1, 2, Np))
-    st = sp.set_points(pts)
-    u_sp = np.asarray(sp.exec_type1(st, v_ch))
+    _check(sp, np.complex128, shape, pts, _values(rng, np.complex128, 1, Np), **kw)
 
-    ref = nufft.set_points(
-        nufft.PlanNUFFT(
-            np.complex128, shape, m=4, sigma=2.0, spread_method="blocked",
-            interpret=True, fft_method="matmul", block_dims=sp.base.block_dims,
-        ),
-        pts,
-    )
-    u_ref = np.asarray(exec_type1_channels(ref, v_ch))
-    np.testing.assert_allclose(u_sp, u_ref, rtol=1e-10, atol=1e-12)
+
+def test_single_device_mesh(rng):
+    """One device: the halo exchange wraps onto the same slab."""
+    shape = (16, 24, 20)
+    kw = dict(m=4, sigma=2.0)
+    sp = SpatialNUFFT(np.complex128, shape, mesh=make_mesh(1), **kw)
+    pts = rng.uniform(0, 2 * np.pi, (3, 300))
+    _check(sp, np.complex128, shape, pts, _values(rng, np.complex128, 1, 300), **kw)
 
 
 def test_skewed_points_still_exact(rng):
-    """All points piled into one chip's slab (max routing skew) must still
-    be exact as long as the capacity allows it."""
+    """All points piled into one device's slab (max routing skew) must
+    still be exact as long as the capacity allows it."""
     shape = (32, 32, 32)
-    n_chips = 4
-    Np = 64 * n_chips
-    mesh = make_mesh(n_chips)
-    sp = SpatialNUFFT(
-        np.complex128, shape, mesh=mesh, m=4, sigma=1.5, interpret=True,
-        capacity_factor=float(n_chips),
-    )
+    Np = 64 * 4
+    kw = dict(m=4, sigma=1.5)
+    sp = SpatialNUFFT(np.complex128, shape, mesh=make_mesh(4),
+                      capacity_factor=4.0, **kw)
     pts = rng.uniform(0, 2 * np.pi, (3, Np))
-    pts[0] = rng.uniform(0, 0.3, Np)  # everything in chip 0's slab
-    v_ch = rng.standard_normal((1, 2, Np))
-    st = sp.set_points(pts)
-    u_sp = np.asarray(sp.exec_type1(st, v_ch))
-    ref = nufft.set_points(
-        _single_plan(np.complex128, shape, block_dims=sp.base.block_dims), pts
-    )
-    u_ref = np.asarray(exec_type1_channels(ref, v_ch))
-    np.testing.assert_allclose(u_sp, u_ref, rtol=1e-10, atol=1e-12)
+    pts[0] = rng.uniform(0, 0.3, Np)  # everything in device 0's slab
+    _check(sp, np.complex128, shape, pts, _values(rng, np.complex128, 1, Np), **kw)
+
+
+def test_points_outside_domain_and_transform(rng):
+    """Unfolded coordinates and a point transform route by the folded,
+    transformed cell, like the single-device plan."""
+    shape = (24, 16, 16)
+    kw = dict(m=3, sigma=2.0, point_transform=lambda x: -x)
+    sp = SpatialNUFFT(np.complex128, shape, mesh=make_mesh(2), **kw)
+    pts = rng.uniform(-2 * np.pi, 4 * np.pi, (3, 200))
+    _check(sp, np.complex128, shape, pts, _values(rng, np.complex128, 1, 200), **kw)
 
 
 def test_routing_overflow_raises(rng):
-    shape = (32, 32, 32)
-    n_chips = 4
-    mesh = make_mesh(n_chips)
-    sp = SpatialNUFFT(
-        np.complex128, shape, mesh=mesh, m=4, sigma=1.5, interpret=True,
-        capacity_factor=0.5,
-    )
+    sp = SpatialNUFFT(np.complex128, (32, 32, 32), mesh=make_mesh(4), m=4,
+                      sigma=1.5, capacity_factor=0.5)
     pts = rng.uniform(0, 2 * np.pi, (3, 256))
-    pts[0] = 0.1  # everyone routes to chip 0 -> guaranteed overflow
+    pts[0] = 0.1  # everyone routes to device 0 -> guaranteed overflow
     with pytest.raises(ValueError, match="overflow"):
         sp.set_points(pts)
 
@@ -171,140 +125,69 @@ def test_validation_errors():
             mesh=Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("a", "b")),
         )
     with pytest.raises(ValueError, match=">= 2 dimensions"):
-        SpatialNUFFT(np.complex128, (64,), mesh=mesh, interpret=True)
-    sp = SpatialNUFFT(np.complex128, (32, 32), mesh=mesh, interpret=True)
+        SpatialNUFFT(np.complex128, (64,), mesh=mesh)
+    with pytest.raises(ValueError, match="slabs"):
+        SpatialNUFFT(np.complex128, (8, 32), mesh=make_mesh(8), m=4, sigma=2.0)
+    with pytest.raises(ValueError, match="spectrum layout"):
+        SpatialNUFFT(np.complex128, (32, 32), mesh=mesh, spectrum="bogus")
+    sp = SpatialNUFFT(np.complex128, (32, 32), mesh=mesh)
     with pytest.raises(ValueError, match="divide by mesh size"):
         sp.set_points(np.zeros((2, 101)))
 
 
-def test_ntransforms_blockform(rng):
-    """C=2 simultaneous transforms through the distributed blockform engine."""
+def test_ntransforms(rng):
+    """C=2 simultaneous transforms through the distributed path."""
     shape = (32, 32, 32)
-    n_chips = 4
-    Np = 96 * n_chips
-    mesh = make_mesh(n_chips)
-    sp = SpatialNUFFT(
-        np.complex128, shape, mesh=mesh, m=4, sigma=1.5, interpret=True,
-        ntransforms=2,
-    )
-    assert sp.engine == "blockform"
+    Np = 300 * 2
+    kw = dict(m=4, sigma=1.5, ntransforms=2)
+    sp = SpatialNUFFT(np.complex128, shape, mesh=make_mesh(2), **kw)
     pts = rng.uniform(0, 2 * np.pi, (3, Np))
-    v_ch = rng.standard_normal((2, 2, Np))
-    st = sp.set_points(pts)
-    u_sp = np.asarray(sp.exec_type1(st, v_ch))
-    ref = nufft.set_points(
-        _single_plan(
-            np.complex128, shape, engine="blockform", ntransforms=2,
-            block_dims=sp.base.block_dims,
-        ),
-        pts,
-    )
-    u_ref = np.asarray(exec_type1_channels(ref, v_ch))
-    np.testing.assert_allclose(u_sp, u_ref, rtol=1e-10, atol=1e-12)
-    v_sp = np.asarray(sp.exec_type2(st, u_ref))
-    v_ref = np.asarray(exec_type2_channels(ref, u_ref))
-    np.testing.assert_allclose(v_sp, v_ref, rtol=1e-10, atol=1e-12)
+    _check(sp, np.complex128, shape, pts, _values(rng, np.complex128, 2, Np), **kw)
 
 
-def test_spatial_dim1_window_engaged(rng):
-    """Dense clusters + explicit dim-1 window: the routed layout's batch_r1
-    metadata must engage (and fall back) per batch, with exact results."""
-    shape = (32, 32, 32)
-    n_chips = 2
-    Np = 2048 * n_chips
-    mesh = make_mesh(n_chips)
-    sp = SpatialNUFFT(
-        np.complex128, shape, mesh=mesh, m=4, sigma=1.5, interpret=True,
-        block_dims=(12, 12, 16), window_rows=12, window_rows_y=16,
-        capacity_factor=float(n_chips),
-    )
-    assert sp.engine == "blockform" and sp.base.window_rows_y == 16
+@pytest.mark.parametrize("dtype", [np.complex128, np.float64])
+def test_spectrum_sharded_matches_replicated(dtype, rng):
+    """spectrum='sharded' (per-device O(N^D/n) spectrum memory) must give
+    the replicated layout's numbers, split along spectral dim 1."""
+    shape = (32, 32, 32) if dtype == np.complex128 else (32, 24, 30)
+    n = 2
+    Np = 200 * n
+    kw = dict(mesh=make_mesh(n), m=4, sigma=1.5)
+    sp_r = SpatialNUFFT(dtype, shape, **kw)
+    sp_s = SpatialNUFFT(dtype, shape, spectrum="sharded", **kw)
     pts = rng.uniform(0, 2 * np.pi, (3, Np))
-    pts[:, : Np // 2] = rng.uniform(0.2, 0.7, (3, Np // 2))  # chip-0 cluster
-    v_ch = rng.standard_normal((1, 2, Np))
-    st = sp.set_points(pts)
-    r1 = np.asarray(st.batch_r1)
-    assert (r1 >= 0).any(), "dim-1 window never engaged on the routed layout"
-    u_sp = np.asarray(sp.exec_type1(st, v_ch))
-    ref = nufft.set_points(
-        _single_plan(
-            np.complex128, shape, block_dims=(12, 12, 16), window_rows=12,
-            window_rows_y=16,
-        ),
-        pts,
-    )
-    u_ref = np.asarray(exec_type1_channels(ref, v_ch))
-    np.testing.assert_allclose(u_sp, u_ref, rtol=1e-10, atol=1e-12)
-    v_sp = np.asarray(sp.exec_type2(st, u_ref))
-    v_ref = np.asarray(exec_type2_channels(ref, u_ref))
-    np.testing.assert_allclose(v_sp, v_ref, rtol=1e-10, atol=1e-12)
-
-
-@pytest.mark.parametrize("engine", ["auto", "split"])
-def test_spectrum_sharded_matches_replicated(engine, rng):
-    """spectrum='sharded' (per-chip O(N^3/n) spectrum memory: ring
-    reduce-scatter on type 1, ring gather-accumulate on type 2 for the
-    blockform engine; dropped all_gather/slice for the split engine) must
-    agree with the replicated layout to roundoff, and the type-1 output
-    must actually carry the sharded layout."""
-    shape = (32, 32, 32)
-    n_chips = 4
-    Np = 160 * n_chips
-    mesh = make_mesh(n_chips)
-    kw = dict(mesh=mesh, m=4, sigma=1.5, interpret=True, engine=engine)
-    sp_r = SpatialNUFFT(np.complex128, shape, **kw)
-    sp_s = SpatialNUFFT(np.complex128, shape, spectrum="sharded", **kw)
-    assert sp_s.engine == sp_r.engine
-    pts = rng.uniform(0, 2 * np.pi, (3, Np))
-    v_ch = rng.standard_normal((1, 2, Np))
-    st_r = sp_r.set_points(pts)
-    st_s = sp_s.set_points(pts)
+    v_ch = _values(rng, dtype, 1, Np)
+    st_r, st_s = sp_r.set_points(pts), sp_s.set_points(pts)
     u_r = np.asarray(sp_r.exec_type1(st_r, v_ch))
     u_s = sp_s.exec_type1(st_s, v_ch)
-    d = 2 + sp_s.spectrum_shard_dim
-    assert u_s.sharding.spec[d] == "grid", u_s.sharding
-    # Ring reduce-scatter sums the per-chip shares in a different order than
-    # psum: identical math, roundoff-level reassociation (~1e-9 rel worst
-    # case observed over 64k f64 elements).
-    np.testing.assert_allclose(np.asarray(u_s), u_r, rtol=1e-8, atol=1e-11)
+    assert u_s.sharding.shard_shape(u_s.shape)[3] == u_r.shape[3] // n
+    np.testing.assert_allclose(np.asarray(u_s), u_r, rtol=1e-12, atol=1e-12)
     v_r = np.asarray(sp_r.exec_type2(st_r, u_r))
     v_s = np.asarray(sp_s.exec_type2(st_s, u_s))
-    np.testing.assert_allclose(v_s, v_r, rtol=1e-8, atol=1e-11)
-    bytes_s = sp_s.collective_bytes()
-    bytes_r = sp_r.collective_bytes()
-    assert bytes_s["spectrum"] == "sharded" and bytes_r["n"] == n_chips
+    np.testing.assert_allclose(v_s, v_r, rtol=1e-12, atol=1e-12)
 
 
-def test_spectrum_sharded_real_blockform(rng):
-    """r2c plans through the sharded-spectrum blockform engine (the halved
-    axis is the last one; dim 0 shards evenly)."""
-    shape = (32, 32, 32)
-    n_chips = 4
-    Np = 128 * n_chips
-    mesh = make_mesh(n_chips)
-    kw = dict(mesh=mesh, m=4, sigma=1.5, interpret=True)
-    sp_r = SpatialNUFFT(np.float64, shape, **kw)
-    sp_s = SpatialNUFFT(np.float64, shape, spectrum="sharded", **kw)
-    assert sp_s.engine == "blockform"
-    pts = rng.uniform(0, 2 * np.pi, (3, Np))
-    v_ch = rng.standard_normal((1, Np))
-    st_r = sp_r.set_points(pts)
-    st_s = sp_s.set_points(pts)
-    u_r = np.asarray(sp_r.exec_type1(st_r, v_ch))
-    u_s = sp_s.exec_type1(st_s, v_ch)
-    assert u_s.sharding.spec[2] == "grid"
-    np.testing.assert_allclose(np.asarray(u_s), u_r, rtol=1e-10, atol=1e-12)
-    v_r = np.asarray(sp_r.exec_type2(st_r, u_r))
-    v_s = np.asarray(sp_s.exec_type2(st_s, u_s))
-    np.testing.assert_allclose(v_s, v_r, rtol=1e-10, atol=1e-12)
+def test_collective_bytes():
+    kw = dict(mesh=make_mesh(4), m=4, sigma=1.5)
+    b_r = SpatialNUFFT(np.complex64, (64, 64, 64), **kw).collective_bytes()
+    b_s = SpatialNUFFT(np.complex64, (64, 64, 64), spectrum="sharded",
+                       **kw).collective_bytes()
+    assert b_r["halo_ppermute"] == 7 * 96 * 96 * 8
+    assert b_s["spectrum_all_gather"] == 0 < b_r["spectrum_all_gather"]
+    assert b_s["transpose_all_to_all"] == b_r["transpose_all_to_all"] > 0
 
 
 def test_spectrum_sharded_indivisible_raises():
-    # Grid planes split over 2 chips fine (oversampled 50 -> 2 x 25-row
-    # slabs) but the 33-mode spectral dim 0 cannot shard evenly.
-    mesh = make_mesh(2)
-    with pytest.raises(ValueError, match="spectral dim"):
-        SpatialNUFFT(
-            np.complex128, (33, 32, 32), mesh=mesh, m=4, sigma=1.5,
-            interpret=True, spectrum="sharded",
-        )
+    with pytest.raises(ValueError, match="divide by the mesh size"):
+        SpatialNUFFT(np.complex128, (30, 30, 30), mesh=make_mesh(4), m=4,
+                     sigma=2.0, spectrum="sharded")
+
+
+def test_chunked_stencils(rng):
+    """Per-device stencil chunking (a lax.scan inside shard_map) matches the
+    single-device plan with the same chunking."""
+    shape = (32, 24, 20)
+    kw = dict(m=4, sigma=1.5, chunk_size=32)
+    sp = SpatialNUFFT(np.complex128, shape, mesh=make_mesh(4), **kw)
+    pts = rng.uniform(0, 2 * np.pi, (3, 400))
+    _check(sp, np.complex128, shape, pts, _values(rng, np.complex128, 1, 400), **kw)
